@@ -1,28 +1,48 @@
-"""Drive the PyTorch + CUDA port's flagship stream loopback once on one GPU.
+"""Drive the PyTorch + CUDA port's stream loopback steps once on one GPU.
 
     python3 chip_smoke.py
 
+Two main paths, each driven once through its step factory with every
+kernel's launch count set to 0 just before it and read just after:
+  flagship  make_flagship_step: u=1 b=16 SISO MCS4, B = 64 streams of
+            T = 192,512 samples, 2 packets each, 15 dB, no resampler;
+  wall      make_wall_step: u=1 b=8, N_TX = 4 Alamouti transmit diversity,
+            MCS2, the 10/9 resampler in both directions (15.36 Ms/s radio
+            rate), B = 16 streams of 85,900 radio-rate samples, 1 packet
+            each, 20 dB.
+
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc-builds the kernels of dectnrp_tpu_torch/csrc for sm_90a;
-  3. BCJR kernel vs its plain twin at K = 6016 and 6080, on 64 codeblocks
-     and on as many as the flagship step decodes in one call (832 and 192),
-     at rtol 1e-4, atol 1e-3; and a turbo_decode_early round trip of 64
-     CRC-carrying codeblocks that must return the sent bits;
-  4. sync-detection kernel vs its plain twin at the flagship shape (b = 16)
-     and at b = 1: sm within rtol 2e-3 / atol 2e-4 away from gate ties, and
-     the sync reports' t_fine, detected and n_eff_tx equal;
-  5. a small stream step on the card equals the same step on the CPU (plain
-     twins), then the flagship step (u=1 b=16 SISO MCS4, B = 64 streams of
-     T = 192,512 samples, 2 packets each, 15 dB) with decode_ok >= 0.95,
-     detected >= 0.95 and both kernels launched during the step;
-  6. times with CUDA events / synchronized host clocks: the step's median,
-     the realtime multiple B*T / step time / 27.648e6, per-stage times, and
-     each kernel next to its plain twin;
-  7. torch.profiler (device activity only) over one flagship step: device
-     kernels launched, their busy time and the device's idle share under
-     the profiler, the top kernels by time. Details go to
-     chiprun_out/profile_flagship.json.
+  2. build: nvcc-builds the kernels of dectnrp_tpu_torch/csrc for sm_90a,
+     one nvcc per source, all at once;
+  3. BCJR kernel vs its plain twin at every K of both paths, on 64
+     codeblocks and on as many as a step decodes in one call, at rtol 1e-4,
+     atol 1e-3; and a turbo_decode_early round trip of 64 CRC-carrying
+     codeblocks per K that must return the sent bits;
+  4. sync-detection kernel vs its plain twin at the flagship shape (b = 16),
+     at b = 1 and at the wall shape (b = 8, 4 RX rows): sm within rtol 2e-3
+     / atol 2e-4 away from gate ties, and the sync reports' t_fine, detected
+     and n_eff_tx equal;
+  5. polyphase kernel vs its plain twin at the wall step's shapes (10/9 on
+     [16, 4, 23,040], 9/10 on [16, 4, 85,900]), at 40/27 and at a ragged
+     9/10 length, rtol 2e-5 / atol 2e-5; a 3-chunk streaming chain equal to
+     the one-shot resampler on the lag-prefixed input;
+  6. small steps on the card equal the same steps on the CPU (plain twins):
+     flagship-shaped (u=1 b=1 SISO) and wall-shaped (u=1 b=1 N_TX = 4 with
+     the resampler); then the flagship and the wall step, each with
+     decode_ok >= 0.95, detected >= 0.95 and its kernels launched in the
+     step (the wall: polyphase exactly twice);
+  7. times with CUDA events / synchronized host clocks: each step's median
+     over 5 steps, its realtime multiple B*T / step time / radio rate,
+     per-stage times, and each kernel next to its plain twin, its bound on
+     the card and, where one PyTorch call computes the same function, that
+     call (conv1d for the polyphase FIR). The BCJR calls are timed eagerly;
+     the sync and polyphase calls, tens to hundreds of microseconds, by CUDA
+     events around CUDA-graph replays (no host launch gaps), and eagerly;
+  8. torch.profiler (device activity only) over one flagship and one wall
+     step: device kernels launched, their busy time and the device's idle
+     share under the profiler, the top kernels by time. Details go to
+     chiprun_out/profile_{flagship,wall}.json.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Details go to
@@ -42,7 +62,13 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
 B_FLAG, N_PKTS, SNR_DB = 64, 2, 15.0
+B_WALL, SNR_WALL = 16, 20.0
+# published NVIDIA H100 SXM peaks at 700 W: HBM bytes/s, fp32 FLOP/s
+# outside the tensor cores
+PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+POLY_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
 def require(cond, msg):
@@ -65,6 +91,24 @@ def cuda_ms(fn, reps=10, warm=2):
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, reps=20):
+    """Device time of one fn() call by CUDA events around replays of a CUDA
+    graph of reps calls: unlike eager back-to-back calls, no host launch
+    overhead between launches (a call of tens of microseconds is otherwise
+    timed at the Python wrapper's rate)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(g.replay, reps=5, warm=1) / reps
+
+
 def host_ms(fn):
     """Host time of fn() between two device synchronizations."""
     torch.cuda.synchronize()
@@ -74,10 +118,60 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def bound(nbytes, ops):
+    """(least time in ms on the card, "bytes" or "operations"): compulsory
+    bytes over the HBM rate vs float32 operations over the fp32 peak."""
+    t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def bcjr_work(K, n_cb):
+    """(bytes, ops) of one windowed max-log-MAP call: Lsys and Lp read once,
+    the posterior written once; per trellis step and codeblock 3 ops of
+    branch metrics, 39 forward (16 adds, 8 maxes, renormalization 7 maxes +
+    8 subs), 39 backward, 47 posterior (32 adds, 2 x 7 maxes, 1 sub), and
+    21 for the D = 32 acquisition steps on each side of every Lw = 128
+    window (2 x 42 x 32 / 128)."""
+    return (2 * (K + 3) + K) * n_cb * 4, 149 * (K + 3) * n_cb
+
+
+def sync_work(B, R, T, P, n_pat):
+    """(bytes, ops) of the detection metric: x read once, sm written once;
+    per output sample and antenna 12 ops for the lag product, power and
+    their prefix sums, 6 per pattern lag for C, 2 for P2; per output 8 for
+    the gated metric and 3 for the box smoothing."""
+    n_t = T - (n_pat + 1) * P
+    return (B * R * T * 8 + B * n_t * 4,
+            B * n_t * (R * (14 + 6 * (n_pat - 1)) + 11))
+
+
+def poly_work(mod, rows):
+    """(bytes, ops) of one resampler FIR call: x read once, y written once,
+    the taps once; 4 flops per nonzero tap of each output's phase."""
+    G = mod.G.cpu().numpy()
+    L = mod.plan.L
+    nnz = (G != 0).sum(1)
+    per_row = (mod.n_out // L) * int(nnz.sum()) + int(nnz[:mod.n_out % L].sum())
+    return rows * (mod.n_in + mod.n_out) * 8 + G.size * 4, 4 * rows * per_row
+
+
+def counts():
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
+    return {"bcjr": bcjr_cuda.launches, "sync": sync_detect.launches,
+            "polyphase": polyphase.launches}
+
+
+def zero_counts():
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
+    bcjr_cuda.launches = sync_detect.launches = polyphase.launches = 0
+
+
 def phase_bcjr(dev, report, main_shapes):
     """Kernel vs plain twin on 64 codeblocks and at `main_shapes` ({K:
-    codeblocks per call}, as the flagship step's PDC decode calls it), then
-    a 64-codeblock turbo round trip per K."""
+    codeblocks per call}, as the steps' PDC decodes call it), then a
+    64-codeblock turbo round trip per K."""
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
     from dectnrp_tpu_torch.phy.fec.chain import _crc_device
     from dectnrp_tpu_torch.phy.fec.crc import POLY_CRC24B, crc_matrix
@@ -161,6 +255,59 @@ def _sync_check(step, y, label, report):
     return err
 
 
+def phase_polyphase(wall, dev, report):
+    """Kernel vs plain twin at the wall step's two calls, at 40/27 and at a
+    ragged 9/10 length; a 3-chunk streaming chain vs the one-shot."""
+    from dectnrp_tpu_torch.phy.ops.polyphase import polyphase_fir_plain
+    from dectnrp_tpu_torch.phy.resampler import (ResamplerPlan, build_resampler,
+                                                 build_resampler_stream,
+                                                 stream_input_lag)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(shape, dtype=torch.complex64, generator=g, device=dev)
+
+    cases = [("10/9 [16,4,23040]", wall.up, (B_WALL, 4)),
+             ("9/10 [16,4,85900]", wall.down, (B_WALL, 4)),
+             ("40/27 [8,13500]", build_resampler(ResamplerPlan(40, 27), 13500), (8,)),
+             ("9/10 ragged [3,9973]", build_resampler(ResamplerPlan(9, 10), 9973), (3,))]
+    errs = {}
+    for label, mod, lead in cases:
+        x = rand(*lead, mod.n_in)
+        got = mod(x)
+        want = polyphase_fir_plain(x, mod.G, mod.plan.L, mod.plan.M, mod.m0,
+                                   mod.n_out)
+        torch.cuda.synchronize()
+        require(got.shape == (*lead, mod.n_out) and torch.isfinite(got).all(),
+                f"polyphase {label}: bad output")
+        errs[label] = (got - want).abs().max().item()
+        require(torch.allclose(got, want, **POLY_TOL),
+                f"polyphase {label}: kernel vs plain max |err| {errs[label]}")
+
+    plan, chunk = ResamplerPlan(9, 10), 10 * 2048
+    st = build_resampler_stream(plan, chunk)
+    x = rand(B_WALL * 4, 3 * chunk)
+    hist = torch.zeros((B_WALL * 4, st.H), dtype=torch.complex64, device=dev)
+    outs = []
+    for c in range(3):
+        y, hist = st(x[:, c * chunk:(c + 1) * chunk], hist)
+        outs.append(y)
+    y_st = torch.cat(outs, -1)
+    lag = stream_input_lag(plan)
+    xd = torch.cat([torch.zeros((B_WALL * 4, lag), dtype=x.dtype, device=dev), x], -1)
+    y_one = build_resampler(plan, xd.shape[-1])(xd)[:, :y_st.shape[-1]]
+    errs["stream_chain"] = (y_st - y_one).abs().max().item()
+    require(torch.allclose(y_st, y_one, **POLY_TOL),
+            f"polyphase stream chain vs one-shot max |err| {errs['stream_chain']}")
+    report["polyphase_check"] = errs
+    print("polyphase: kernel == plain twin at " + ", ".join(
+        f"{k} (max |err| {v:.3g})" for k, v in errs.items() if k != "stream_chain")
+        + f"; 3-chunk stream chain == one-shot on the lag-{lag} input (max |err| "
+        f"{errs['stream_chain']:.3g}); rtol 2e-5 atol 2e-5", flush=True)
+    return max(errs.values())
+
+
 def _inputs(step, B, seed, dev):
     from dectnrp_tpu_torch.loopback import packet_offsets
 
@@ -175,17 +322,109 @@ def _inputs(step, B, seed, dev):
     return plcf, tb, offs
 
 
-def phase_profile(step, dev, gen, card, report):
-    """torch.profiler with device activity only over one flagship step."""
+def small_step_check(step, dev, gen, label):
+    """The same noisy radio-rate stream received on the card (kernels) and
+    on the CPU (plain twins) gives the same decisions."""
+    p, t, o = _inputs(step, 2, 8, dev)
+    y = step.awgn(step.stream(p, t, o), gen)
+    ok_k, det_k, tf_k = step.receive(step.resample_down(y))
+    before = counts()
+    cpu = step.cpu()
+    ok_c, det_c, tf_c = cpu.receive(cpu.resample_down(y.cpu()))
+    step.to(dev)
+    require(counts() == before, f"small {label} step: CPU run launched a kernel")
+    require(torch.equal(tf_k.cpu(), tf_c) and torch.equal(det_k.cpu(), det_c)
+            and torch.equal(ok_k.cpu(), ok_c),
+            f"small {label} step: card and CPU decisions differ")
+    require(bool(ok_c.all()), f"small {label} step: decode failed")
+    print(f"reference: small {label} step on the card decodes the same "
+          "t_fine/detected/tb_ok as on the CPU", flush=True)
+
+
+def counted_step(step, B, seed, dev, gen, name, report):
+    """One step through the main path, launch counts 0 before and read
+    after; the bench's gate."""
+    p, t, o = _inputs(step, B, seed, dev)
+    zero_counts()
+    ok, det, _ = step(p, t, o, gen)
+    torch.cuda.synchronize()
+    launches = counts()
+    ok_frac = ok.float().mean().item()
+    det_frac = det.float().mean().item()
+    report[name] = {"B": B, "T": step.T, "T_dect": step.T_dect,
+                    "n_pkts": step.n_pkts, "snr_db": -10 * np.log10(step.noise_var),
+                    "decode_ok": ok_frac, "detected": det_frac,
+                    "launches": launches}
+    require(ok_frac >= 0.95 and det_frac >= 0.95,
+            f"{name} gate: decode_ok {ok_frac:.3f} detected {det_frac:.3f}")
+    print(f"{name}: B={B} T={step.T} {step.n_pkts} packet(s)/stream: decode_ok "
+          f"{ok_frac:.4f} detected {det_frac:.4f}; launches in the step: "
+          + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches
+
+
+def time_stages(step, B, dev, gen, seed0):
+    """Step median over 5 steps and per-stage medians (ms)."""
+    from dectnrp_tpu_torch.phy import rx as rx_mod
+
+    split = {"pcc": [], "pdc": []}
+
+    def timed(fn, key):
+        def wrap(*a, **kw):
+            ms, out = host_ms(lambda: fn(*a, **kw))
+            split[key].append(ms)
+            return out
+        return wrap
+
+    pcc0, pdc0 = rx_mod.pcc_decode, rx_mod.pdc_decode
+    names = ["step", "tx", "scatter", "awgn", "sync", "rx_stream"]
+    if step.up is not None:
+        names += ["resample_up", "resample_down"]
+    stages = {k: [] for k in names}
+
+    def add(key, fn):
+        ms, out = host_ms(fn)
+        if key in stages:
+            stages[key].append(ms)
+        return out
+
+    for i in range(5):
+        p, t, o = _inputs(step, B, seed0 + i, dev)
+        add("step", lambda: step(p, t, o, gen))
+        iq = add("tx", lambda: step.transmit(p, t))
+        iq = add("resample_up", lambda: step.resample_up(iq))
+        s = add("scatter", lambda: step.scatter(iq, o))
+        y = add("awgn", lambda: step.awgn(s, gen))
+        y = add("resample_down", lambda: step.resample_down(y))
+        rep = add("sync", lambda: step.sync(y))
+        tf, cf = rep["t_fine"], rep["cfo"]
+        if step.n_pkts == 1:
+            tf, cf = tf[:, None], cf[:, None]
+        rx_mod.pcc_decode, rx_mod.pdc_decode = timed(pcc0, "pcc"), timed(pdc0, "pdc")
+        try:
+            add("rx_stream", lambda: [step.rxs(y, tf[:, k], cf[:, k], step.noise_var)
+                                      for k in range(step.n_pkts)])
+        finally:
+            rx_mod.pcc_decode, rx_mod.pdc_decode = pcc0, pdc0
+    med = {k: statistics.median(v) for k, v in stages.items()}
+    # per-step totals: median call time x calls per step (pcc_decode runs
+    # twice per packet, once per PLCF type; pdc_decode once per packet)
+    med["pcc_decode"] = statistics.median(split["pcc"]) * len(split["pcc"]) / 5
+    med["pdc_decode"] = statistics.median(split["pdc"]) * len(split["pdc"]) / 5
+    return med, stages
+
+
+def phase_profile(step, name, B, dev, gen, card, report):
+    """torch.profiler with device activity only over one step."""
     from torch.profiler import ProfilerActivity, profile
 
-    p, t, o = _inputs(step, B_FLAG, 200, dev)
+    p, t, o = _inputs(step, B, 200, dev)
     step(p, t, o, gen)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_ms, _ = host_ms(lambda: step(p, t, o, gen))
     ev = [e for e in prof.profiler.kineto_results.events()
           if e.device_type() == torch.autograd.DeviceType.CUDA]
-    require(ev, "profile: no device activity traced")
+    require(ev, f"profile {name}: no device activity traced")
     busy_ns, cur_s, cur_e = 0, None, None
     for s0, s1 in sorted((e.start_ns(), e.start_ns() + e.duration_ns())
                          for e in ev):
@@ -202,15 +441,44 @@ def phase_profile(step, dev, gen, card, report):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     prof_rep = {"card": card, "wall_ms": wall_ms, "n_device_events": len(ev),
                 "busy_union_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-                "unprofiled_step_ms": report["times_ms_all"]["step"],
+                "unprofiled_step_ms": report[f"{name}_times_ms_all"]["step"],
                 "top": [[n, c, ms] for n, (c, ms) in top]}
-    (ROOT / "chiprun_out" / "profile_flagship.json").write_text(
-        json.dumps(prof_rep, indent=1))
-    print(f"[{card}] profile (torch.profiler, device activity, one flagship "
+    (OUT / f"profile_{name}.json").write_text(json.dumps(prof_rep, indent=1))
+    print(f"[{card}] profile (torch.profiler, device activity, one {name} "
           f"step): {len(ev)} device events, busy {busy_ms:.1f} ms in a "
           f"{wall_ms:.1f} ms step, idle share {1 - busy_ms / wall_ms:.3f}; "
           "top: " + "; ".join(f"{n[:48]} x{c} {ms:.1f} ms"
                               for n, (c, ms) in top[:5]), flush=True)
+
+
+def poly_times(mod, x):
+    """Times (ms) of one resampler call: the kernel, its plain twin and the
+    conv1d yardstick by CUDA graph replay, the kernel also eagerly; and the
+    yardstick's max |err| against the kernel. The yardstick is
+    torch.nn.functional.conv1d on the real and imaginary rows, padded as
+    the FIR reads them (the padding is not timed):
+    out[c, l, g] = sum_w G[l, w] x[c, g M + w]."""
+    import torch.nn.functional as F
+
+    from dectnrp_tpu_torch.phy.ops.polyphase import polyphase_fir_plain
+
+    L, M, W = mod.plan.L, mod.plan.M, mod.G.shape[1]
+    n_in, n_out, m0 = mod.n_in, mod.n_out, mod.m0
+    n_frames = -(-n_out // L)
+    pad_l = max(0, -m0)
+    pad_r = max(0, (n_frames - 1) * M + m0 + W - n_in)
+    rows = torch.view_as_real(x).movedim(-1, -2).reshape(-1, 1, n_in)
+    xr = F.pad(rows, (pad_l, pad_r))[..., m0 + pad_l:].contiguous()
+    wt = mod.G[:, None, :].contiguous()
+    lib = F.conv1d(xr, wt, stride=M)                            # [2r, L, >=F]
+    lib = lib[..., :n_frames].permute(0, 2, 1).reshape(-1, 2, n_frames * L)
+    lib = torch.view_as_complex(lib[..., :n_out].movedim(-2, -1).contiguous())
+    lib_err = (lib.reshape(x.shape[:-1] + (n_out,)) - mod(x)).abs().max().item()
+    return {"ms": graph_ms(lambda: mod(x)),
+            "plain_ms": graph_ms(
+                lambda: polyphase_fir_plain(x, mod.G, L, M, m0, n_out), reps=5),
+            "library_ms": graph_ms(lambda: F.conv1d(xr, wt, stride=M)),
+            "eager_ms": cuda_ms(lambda: mod(x)), "library_max_abs_err": lib_err}
 
 
 def main() -> int:
@@ -219,16 +487,15 @@ def main() -> int:
     from dectnrp_tpu_torch.sections.part3.packet_sizes import PacketSizesDef
 
     from dectnrp_tpu_torch import kernels
-    from dectnrp_tpu_torch.loopback import (FLAGSHIP_PSDEF, dect_rate,
-                                            make_flagship_step)
-    from dectnrp_tpu_torch.phy import rx as rx_mod
-    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.loopback import (FLAGSHIP_PSDEF, WALL_PSDEF, hw_rate,
+                                            make_flagship_step, make_wall_step)
     from dectnrp_tpu_torch.phy.fec.bcjr_cuda import (bcjr_posterior_cm,
                                                      bcjr_windowed_cm_plain)
     from dectnrp_tpu_torch.phy.ops import sync_detect
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    OUT.mkdir(exist_ok=True)
     report = {}
 
     # ---- 1. device
@@ -248,143 +515,146 @@ def main() -> int:
           f"{kernels.build_seconds:.1f} s", flush=True)
 
     # ---- 3. BCJR kernel vs plain twin, turbo round trip
-    step = make_flagship_step(FLAGSHIP_PSDEF, n_pkts=N_PKTS, snr_db=SNR_DB).to(dev)
-    # the PDC decode turbo-decodes each K group of all B_FLAG rows in one call
-    main_shapes = {K: n * B_FLAG
-                   for K, n in Counter(step.rxs.rx.plan.cb_K).items()}
+    step = make_flagship_step(FLAGSHIP_PSDEF, n_pkts=N_PKTS, snr_db=SNR_DB)
+    wall = make_wall_step(WALL_PSDEF, snr_db=SNR_WALL)
+    # the PDC decode turbo-decodes each K group of all B rows in one call
+    flag_shapes = {K: n * B_FLAG for K, n in Counter(step.rxs.rx.plan.cb_K).items()}
+    wall_shapes = {K: n * B_WALL for K, n in Counter(wall.rxs.rx.plan.cb_K).items()}
+    main_shapes = {**flag_shapes, **wall_shapes}
     bcjr_err = phase_bcjr(dev, report, main_shapes)
 
-    # ---- 4. sync kernel vs plain twin at the flagship shape and at b = 1
+    # ---- 4. sync kernel vs plain twin at the flagship shape, b = 1, the wall
     gen = torch.Generator(device=dev).manual_seed(0)
     plcf, tb, offs = _inputs(step, B_FLAG, 7, dev)
     y = step.awgn(step.stream(plcf, tb, offs), gen)
     sync_err = _sync_check(step, y, "b16", report)
-    small = PacketSizesDef(1, 1, 0, 2, 0, 4, 6144)
-    step1 = make_flagship_step(small, n_pkts=N_PKTS, snr_db=SNR_DB).to(dev)
+    step1 = make_flagship_step(PacketSizesDef(1, 1, 0, 2, 0, 4, 6144),
+                               n_pkts=N_PKTS, snr_db=SNR_DB)
     p1, t1, o1 = _inputs(step1, B_FLAG, 8, dev)
-    y1 = step1.awgn(step1.stream(p1, t1, o1), gen)
-    _sync_check(step1, y1, "b1", report)
+    _sync_check(step1, step1.awgn(step1.stream(p1, t1, o1), gen), "b1", report)
+    pw, tw, ow = _inputs(wall, B_WALL, 9, dev)
+    yw = wall.resample_down(wall.awgn(wall.stream(pw, tw, ow), gen))
+    sync_err = max(sync_err, _sync_check(wall, yw, "wall_b8_R4", report))
 
-    # ---- 5a. small step on the card == the same step on the CPU
-    y1s = y1[:2].contiguous()
-    ok_k, det_k, tf_k = step1.receive(y1s)
-    ok_c, det_c, tf_c = step1.cpu().receive(y1s.cpu())
-    step1.to(dev)
-    require(torch.equal(tf_k.cpu(), tf_c) and torch.equal(det_k.cpu(), det_c)
-            and torch.equal(ok_k.cpu(), ok_c),
-            "small step: card and CPU decisions differ")
-    require(bool(ok_c.all()), "small step: decode failed")
-    print("reference: small step (u=1 b=1, K=960) on the card decodes the same "
-          "t_fine/detected/tb_ok as on the CPU", flush=True)
+    # ---- 5. polyphase kernel vs plain twin
+    poly_err = phase_polyphase(wall, dev, report)
 
-    # ---- 5b. the flagship step, counted
-    B, T = B_FLAG, step.T
-    bcjr_cuda.launches = 0
-    sync_detect.launches = 0
-    ok, det, tf = step(plcf, tb, offs, gen)
-    torch.cuda.synchronize()
-    launches = {"bcjr": bcjr_cuda.launches, "sync": sync_detect.launches}
-    ok_frac = ok.float().mean().item()
-    det_frac = det.float().mean().item()
-    report["flagship"] = {"B": B, "T": T, "n_pkts": N_PKTS, "snr_db": SNR_DB,
-                          "decode_ok": ok_frac, "detected": det_frac,
-                          "launches": launches}
-    require(ok_frac >= 0.95 and det_frac >= 0.95,
-            f"flagship gate: decode_ok {ok_frac:.3f} detected {det_frac:.3f}")
-    require(launches["bcjr"] > 0 and launches["sync"] > 0,
-            f"flagship: a kernel was not launched ({launches})")
-    print(f"flagship: B={B} T={T} {N_PKTS} packets/stream {SNR_DB:g} dB: "
-          f"decode_ok {ok_frac:.4f} detected {det_frac:.4f}; launches in the "
-          f"step: bcjr {launches['bcjr']} sync {launches['sync']}", flush=True)
+    # ---- 6. small steps card == CPU, then the two main paths, counted
+    small_step_check(step1, dev, gen, "flagship-shaped (u=1 b=1 SISO, K=960)")
+    wall1 = make_wall_step(PacketSizesDef(1, 1, 0, 3, 5, 2, 6144), snr_db=SNR_WALL)
+    small_step_check(wall1, dev, gen, "wall-shaped (u=1 b=1 N_TX=4 Alamouti, "
+                     "10/9 resampler, K=768)")
+    del step1, wall1
+    launches = {"flagship": counted_step(step, B_FLAG, 7, dev, gen, "flagship",
+                                         report),
+                "wall": counted_step(wall, B_WALL, 17, dev, gen, "wall", report)}
+    require(launches["flagship"]["bcjr"] > 0 and launches["flagship"]["sync"] > 0,
+            f"flagship: a kernel was not launched ({launches['flagship']})")
+    require(launches["wall"]["polyphase"] == 2 and launches["wall"]["bcjr"] > 0
+            and launches["wall"]["sync"] > 0,
+            f"wall: kernels not launched as expected ({launches['wall']})")
 
-    # ---- 6. times [card]
-    # PCC/PDC split: time the decoders where the RX calls them
-    split = {"pcc": [], "pdc": []}
+    # ---- 7. times [card]
+    order = ("tx", "resample_up", "scatter", "awgn", "resample_down", "sync",
+             "rx_stream", "pcc_decode", "pdc_decode")
+    for name, st, B, psdef, seed in (("flagship", step, B_FLAG, FLAGSHIP_PSDEF, 100),
+                                     ("wall", wall, B_WALL, WALL_PSDEF, 300)):
+        med, stages = time_stages(st, B, dev, gen, seed)
+        rate = hw_rate(psdef, st.up is not None)
+        rt = B * st.T / (med["step"] / 1e3) / rate
+        report[f"{name}_times_ms"] = med
+        report[f"{name}_times_ms_all"] = stages
+        report[f"{name}_realtime_multiple"] = rt
+        print(f"[{card}] {name} step median {med['step']:.1f} ms over 5 steps = "
+              f"{rt:.3f}x realtime (B*T/step/{rate / 1e6:g}e6); stages (ms, "
+              "medians): " + ", ".join(f"{k} {med[k]:.2f}" for k in order
+                                       if k in med), flush=True)
 
-    def timed(fn, key):
-        def wrap(*a, **kw):
-            ms, out = host_ms(lambda: fn(*a, **kw))
-            split[key].append(ms)
-            return out
-        return wrap
-
-    pcc0, pdc0 = rx_mod.pcc_decode, rx_mod.pdc_decode
-    stages = {"tx_scatter": [], "awgn": [], "sync": [], "rx_stream": [],
-              "step": []}
-    for i in range(5):
-        p_i, t_i, o_i = _inputs(step, B, 100 + i, dev)
-        ms_step, _ = host_ms(lambda: step(p_i, t_i, o_i, gen))
-        stages["step"].append(ms_step)
-        ms, s_i = host_ms(lambda: step.stream(p_i, t_i, o_i))
-        stages["tx_scatter"].append(ms)
-        ms, y_i = host_ms(lambda: step.awgn(s_i, gen))
-        stages["awgn"].append(ms)
-        ms, rep = host_ms(lambda: step.sync(y_i))
-        stages["sync"].append(ms)
-        rx_mod.pcc_decode, rx_mod.pdc_decode = timed(pcc0, "pcc"), timed(pdc0, "pdc")
-        try:
-            ms, _ = host_ms(lambda: [step.rxs(y_i, rep["t_fine"][:, k],
-                                              rep["cfo"][:, k], step.noise_var)
-                                     for k in range(N_PKTS)])
-        finally:
-            rx_mod.pcc_decode, rx_mod.pdc_decode = pcc0, pdc0
-        stages["rx_stream"].append(ms)
-    med = {k: statistics.median(v) for k, v in stages.items()}
-    # per-step totals: median call time x calls per step (pcc_decode runs
-    # twice per packet, once per PLCF type; pdc_decode once per packet)
-    med["pcc_decode"] = statistics.median(split["pcc"]) * len(split["pcc"]) / 5
-    med["pdc_decode"] = statistics.median(split["pdc"]) * len(split["pdc"]) / 5
-    rt = B * T / (med["step"] / 1e3) / dect_rate(FLAGSHIP_PSDEF)
-    report["times_ms"] = med
-    report["times_ms_all"] = stages
-    report["realtime_multiple"] = rt
-    print(f"[{card}] flagship step median {med['step']:.1f} ms over 5 steps = "
-          f"{rt:.3f}x realtime (B*T/step/27.648e6); stages (ms, medians): "
-          + ", ".join(f"{k} {med[k]:.1f}" for k in
-                      ("tx_scatter", "awgn", "sync", "rx_stream", "pcc_decode",
-                       "pdc_decode")), flush=True)
-
-    # kernels next to their plain twins, at the main path's shapes
-    K = next(iter(main_shapes))
+    # kernels next to their plain twins, at the main paths' shapes
+    K = next(iter(flag_shapes))
     g = torch.Generator(device=dev).manual_seed(1)
     bcjr_times = {}
-    for Bc in (64, main_shapes[K]):
-        Lsys = torch.randn((K + 3, Bc), generator=g, device=dev) * 3
-        Lp = torch.randn((K + 3, Bc), generator=g, device=dev) * 3
-        bcjr_times[Bc] = (
-            cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, K)),
-            cuda_ms(lambda: bcjr_windowed_cm_plain(Lsys, Lp, K), reps=3))
-    bcjr_ms, bcjr_plain_ms = bcjr_times[main_shapes[K]]
+    for Kc, Bc in ((K, 64), (K, flag_shapes[K]), *wall_shapes.items()):
+        Lsys = torch.randn((Kc + 3, Bc), generator=g, device=dev) * 3
+        Lp = torch.randn((Kc + 3, Bc), generator=g, device=dev) * 3
+        bcjr_times[(Kc, Bc)] = (
+            cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc)),
+            cuda_ms(lambda: bcjr_windowed_cm_plain(Lsys, Lp, Kc), reps=3))
+    bcjr_ms, bcjr_plain_ms = bcjr_times[(K, flag_shapes[K])]
+    bcjr_bound = bound(*bcjr_work(K, flag_shapes[K]))
     s = step.sync
     sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold, s.params.metric_max)
-    sync_ms = cuda_ms(lambda: sync_detect.detect_sm(y, *sargs))
-    sync_plain_ms = cuda_ms(lambda: sync_detect.detect_sm_plain(y, *sargs), reps=5)
+    sync_ms = graph_ms(lambda: sync_detect.detect_sm(y, *sargs))
+    sync_plain_ms = graph_ms(lambda: sync_detect.detect_sm_plain(y, *sargs), reps=5)
+    sync_eager_ms = cuda_ms(lambda: sync_detect.detect_sm(y, *sargs))
+    sync_bound = bound(*sync_work(*y.shape, s.P, s.n_pat))
+    poly = {}
+    # the packets and the noisy radio-rate stream the wall step resamples
+    x_up = wall.transmit(pw, tw)
+    x_down = wall.awgn(wall.scatter(wall.resample_up(x_up), ow), gen)
+    for label, mod, x in (("up", wall.up, x_up), ("down", wall.down, x_down)):
+        poly[label] = {**poly_times(mod, x),
+                       "bound": bound(*poly_work(mod, B_WALL * 4)),
+                       "shape": list(x.shape), "L": mod.plan.L, "M": mod.plan.M}
+    # one wall step's work: the up and the down call
+    poly_sum = {k: sum(v[k] for v in poly.values())
+                for k in ("ms", "plain_ms", "library_ms", "eager_ms")}
+    poly_bound = (sum(v["bound"][0] for v in poly.values()),
+                  "bytes" if all(v["bound"][1] == "bytes" for v in poly.values())
+                  else "operations")
     report["kernel_ms"] = {
-        **{f"bcjr_K{K}_{Bc}cb": t[0] for Bc, t in bcjr_times.items()},
-        **{f"bcjr_K{K}_{Bc}cb_plain": t[1] for Bc, t in bcjr_times.items()},
-        "sync_flagship": sync_ms, "sync_flagship_plain": sync_plain_ms}
+        **{f"bcjr_K{k}_{b}cb": t[0] for (k, b), t in bcjr_times.items()},
+        **{f"bcjr_K{k}_{b}cb_plain": t[1] for (k, b), t in bcjr_times.items()},
+        "sync_flagship": sync_ms, "sync_flagship_plain": sync_plain_ms,
+        "sync_flagship_eager": sync_eager_ms,
+        "polyphase": poly}
     print(f"[{card}] kernels (CUDA events): "
-          + "; ".join(f"bcjr K={K} x {Bc} cb {t[0]:.3f} ms vs plain {t[1]:.3f} ms"
-                      for Bc, t in bcjr_times.items())
-          + f"; sync sm B={B} T={T} {sync_ms:.3f} ms vs plain "
-          f"{sync_plain_ms:.3f} ms", flush=True)
+          + "; ".join(f"bcjr K={k} x {b} cb {t[0]:.3f} ms vs plain {t[1]:.3f} ms"
+                      for (k, b), t in bcjr_times.items())
+          + f" (bound {bcjr_bound[0]:.4f} ms, {bcjr_bound[1]}); sync sm "
+          f"B={B_FLAG} T={step.T} {sync_ms:.3f} ms (eager {sync_eager_ms:.3f}) vs "
+          f"plain {sync_plain_ms:.3f} ms (bound {sync_bound[0]:.4f} ms, "
+          f"{sync_bound[1]}); "
+          + "; ".join(f"polyphase {v['L']}/{v['M']} {v['shape']} {v['ms']:.4f} ms "
+                      f"(eager {v['eager_ms']:.4f}) vs plain {v['plain_ms']:.3f} ms "
+                      "vs conv1d "
+                      f"{v['library_ms']:.4f} ms (bound {v['bound'][0]:.4f} ms, "
+                      f"{v['bound'][1]})" for v in poly.values()), flush=True)
 
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    phase_profile(step, dev, gen, card, report)
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    # ---- 8. profiles
+    phase_profile(step, "flagship", B_FLAG, dev, gen, card, report)
+    phase_profile(wall, "wall", B_WALL, dev, gen, card, report)
+
+    def total(key):
+        return sum(v[key] for v in launches.values())
+
+    def by_path(key):
+        return {k: v[key] for k, v in launches.items()}
 
     kernels_line = {"kernels": [
         {"name": "bcjr_posterior_cm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/bcjr.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:87",
-         "launches": launches["bcjr"], "max_abs_err": bcjr_err,
-         "ms": bcjr_ms, "plain_ms": bcjr_plain_ms},
+         "launches": total("bcjr"), "launches_by_path": by_path("bcjr"),
+         "max_abs_err": bcjr_err, "ms": bcjr_ms, "plain_ms": bcjr_plain_ms,
+         "bound_ms": bcjr_bound[0], "bound_by": bcjr_bound[1],
+         "library_ms": None},
         {"name": "sync_detect_sm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",
          "replaces": "dectnrp_tpu/phy/ops/sync_detect.py:62",
-         "launches": launches["sync"], "max_abs_err": sync_err,
-         "ms": sync_ms, "plain_ms": sync_plain_ms}]}
+         "launches": total("sync"), "launches_by_path": by_path("sync"),
+         "max_abs_err": sync_err, "ms": sync_ms, "plain_ms": sync_plain_ms,
+         "eager_ms": sync_eager_ms,
+         "bound_ms": sync_bound[0], "bound_by": sync_bound[1],
+         "library_ms": None},
+        {"name": "polyphase_fir", "route": "cuda",
+         "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
+         "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",
+         "launches": total("polyphase"), "launches_by_path": by_path("polyphase"),
+         "max_abs_err": poly_err, **poly_sum, "bound_ms": poly_bound[0],
+         "bound_by": poly_bound[1]}]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-All `csrc/*.cu` compile with nvcc for Hopper (`sm_90a`) into ONE shared
-library with a plain C interface, loaded with ctypes. Nothing here includes
-PyTorch's headers, so a cold build takes seconds. The library goes to
+Each `csrc/*.cu` compiles with its own nvcc for Hopper (`sm_90a`), all of
+them at once, and the objects link into ONE shared library with a plain C
+interface, loaded with ctypes. Nothing here includes PyTorch's headers, so a
+cold build takes seconds. The library goes to
 `_build/` (listed in .gitignore) under a name that carries a hash of the
 sources and flags, so an edited source rebuilds and a stale library is never
 loaded. Pointers and the CUDA stream pass as `ctypes.c_void_p`; every entry
@@ -23,8 +24,8 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_seconds: float | None = None   # wall time of this process's build/load
@@ -49,6 +50,8 @@ def _declare(lib):
     lib.bcjr_posterior_cm.restype = i
     lib.sync_detect_sm.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, p]
     lib.sync_detect_sm.restype = i
+    lib.polyphase_fir.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.polyphase_fir.restype = i
     return lib
 
 
@@ -69,11 +72,22 @@ def load():
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
+        objs = [tmp.with_suffix(f".{s.stem}.o") for s in srcs]
+        procs = [subprocess.Popen([_nvcc(), *_FLAGS, "-c", "-o", str(o), str(s)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        build_log = "".join(p.communicate()[0] for p in procs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        res = subprocess.run(
+            [_nvcc(), *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
+        for o in objs:
+            o.unlink()
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
         os.replace(tmp, so)
     _lib = _declare(ctypes.CDLL(str(so)))
     build_seconds = time.perf_counter() - t0

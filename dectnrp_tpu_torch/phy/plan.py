@@ -5,8 +5,10 @@ constant tables (QPP interleavers, rate-match maps, scrambling sequences,
 CRC GF(2) matrices, trellis LUTs, cell indices, STF templates, Wiener banks).
 The port builds them with numpy from copies of the JAX package's builders
 and turns them into tensors in one place, `tables_to_device`. The builder
-modules (`build_tx`, `build_sync`, `build_rx`) register the result as
-buffers; the plain FEC functions fetch theirs through `device_tables`.
+modules (`build_tx`, `build_sync`, `build_rx`, `build_resampler`, ...)
+register the result as buffers and move themselves to the device they are
+asked for ("cuda" unless the caller says otherwise); the plain FEC
+functions fetch theirs through `device_tables` on their inputs' device.
 """
 from __future__ import annotations
 

@@ -6,13 +6,15 @@ packets and RX antennas:
   iq -> STF residual CFO -> CP strip + batched FFT -> DRS ZF estimates
      -> DRS CFO refinement, fractional STO, 4th-order SNR estimate
      -> Wiener bank (SNR x selectivity) in frequency, linear in time
-     -> PCC: MRC -> QPSK soft demap -> blind PLCF type 1 AND 2 decode
-     -> PDC: MRC -> soft demap -> turbo decode -> TB CRC.
+     -> PCC: MRC or Alamouti combine -> QPSK soft demap -> blind PLCF
+        type 1 AND 2 decode
+     -> PDC: MRC or Alamouti combine -> soft demap -> turbo decode -> TB CRC.
 
-This slice is `build_rx` at its defaults with one transmit stream:
-chestim_mode="lr_t", freq_kind="wiener", time_kind="linear", dd_passes=0,
-est_sto and est_cfo on, genie off. Any other value of these options, and
-Alamouti/MMSE combining (N_TS > 1), raise NotImplementedError (queued in
+This port is `build_rx` at its defaults: chestim_mode="lr_t",
+freq_kind="wiener", time_kind="linear", dd_passes=0, est_sto and est_cfo
+on, genie off, for one spatial stream (N_SS = 1) over N_TS = 1 (MRC) or
+N_TS = 2/4/8 transmit streams (Alamouti). Any other value of these options,
+and MMSE combining (N_SS > 1), raise NotImplementedError (queued in
 ROADMAP.md).
 """
 from __future__ import annotations
@@ -23,12 +25,21 @@ import torch
 from ..sections.part3.drs import get_N_step
 from ..sections.part3.packet_sizes import PacketSizesDef
 from ..sections.part3.stf import cover_sequence, n_stf_patterns
+from ..sections.part3.tx_div import TS_PAIRS, get_modulo
 from .chestim import (WIENER_PRESETS, comb_offsets, freq_interp_matrices,
                       time_interp_matrix)
 from .fec.chain import PdcPlan, pcc_decode, pdc_decode
 from .modulation import demap_llr
 from .packet_config import get_packet_luts
 from .plan import register_tables
+
+
+def _pair_ts(n_cells: int, N_TS: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per cell-pair (ts_a, ts_b) transmit-stream indices of the Alamouti map."""
+    pairs = TS_PAIRS[N_TS]
+    mod = get_modulo(N_TS)
+    p = np.arange(n_cells // 2) % mod
+    return pairs[p, 0].astype(np.int32), pairs[p, 1].astype(np.int32)
 
 
 def _exp_ramp(phase_per_n: torch.Tensor, n_len: int) -> torch.Tensor:
@@ -56,6 +67,31 @@ def _mrc(y, h):
     return num / den.clamp_min(1e-12), den
 
 
+def _alamouti(y, h, ts_a, ts_b):
+    """y [B,R,n], h [B,R,N_TS,n] -> (x_eq [B,n], csi [B,n]).
+
+    TX mapping (tx_div.alamouti_map): ta carries (x0, x1)/sqrt2,
+    tb carries (-x1*, x0*)/sqrt2. csi is the post-combining |h_eff|^2.
+    """
+    B = y.shape[0]
+    y0, y1 = y[..., 0::2], y[..., 1::2]                          # [B,R,P]
+    h_even = h[..., 0::2]                                        # [B,R,T,P]
+    pair_idx = torch.arange(ts_a.numel(), device=h.device)
+    ha = h_even[:, :, ts_a, pair_idx]                            # [B,R,P]
+    hb = h_even[:, :, ts_b, pair_idx]
+    x0u = (torch.conj(ha) * y0 + hb * torch.conj(y1)).sum(1)    # [B,P]
+    x1u = (torch.conj(ha) * y1 - hb * torch.conj(y0)).sum(1)
+    G = (ha.abs() ** 2 + hb.abs() ** 2).sum(1)                   # [B,P]
+    s = 1.0 / np.sqrt(2.0)
+    x0 = x0u / (s * G).clamp_min(1e-12)
+    x1 = x1u / (s * G).clamp_min(1e-12)
+    x = torch.stack([x0, x1], -1).reshape(B, -1)
+    # jnp's .repeat(2, -1) repeats each element (repeat_interleave), it
+    # does not tile
+    csi = (0.5 * G).repeat_interleave(2, -1)
+    return x, csi
+
+
 #: the options of dectnrp_tpu/phy/rx.py::build_rx and the one value each
 #: takes in this port
 RX_DEFAULTS = {"chestim_mode": "lr_t", "freq_kind": "wiener",
@@ -71,8 +107,9 @@ class Rx(torch.nn.Module):
         super().__init__()
         luts = get_packet_luts(psdef)
         ps = self.ps = luts.ps
-        if ps.tm_mode.N_TS != 1:
-            raise NotImplementedError("build_rx: N_TS > 1 (Alamouti/MMSE) is not ported yet")
+        if ps.tm_mode.N_SS != 1:
+            raise NotImplementedError("build_rx: N_SS > 1 (MMSE) is not ported yet")
+        self.N_TS = N_TS = ps.tm_mode.N_TS
         q = ps.numerology
         N, S, cp = q.N_b_DFT, ps.N_PACKET_symb, q.N_b_CP
         N_occ = q.N_b_OCC
@@ -94,7 +131,7 @@ class Rx(torch.nn.Module):
                     freq_interp_matrices(psdef.b, "linear"),
                     freq_interp_matrices(psdef.b, "linear")]
         preset_snrs = np.array([sn for _, sn in WIENER_PRESETS], np.float32)
-        combs = comb_offsets(psdef.u, psdef.b, S, 1)              # [1, n_symb]
+        combs = comb_offsets(psdef.u, psdef.b, S, N_TS)           # [T, n_symb]
         self.comb_vals = [int(c) for c in np.unique(combs)]
         self.n_wf = len(Wf_bank)
 
@@ -103,10 +140,10 @@ class Rx(torch.nn.Module):
         cov = cover_sequence(psdef.u)
         self.n_drs_symb = luts.n_drs_symb
         self.n4 = N_occ // 4
-        self.N_step_drs = get_N_step(1)
+        self.N_step_drs = get_N_step(N_TS)
         drs_lin = np.asarray(luts.drs_lin)
         sc_drs = ((drs_lin % N) - N // 2).astype(np.float32).reshape(
-            1, self.n_drs_symb, self.n4)
+            N_TS, self.n_drs_symb, self.n4)
         tables = {
             "w_pat": (cov[:-1] * cov[1:]).astype(np.float32),
             "w3": (cov[:-3] * cov[3:]).astype(np.float32),
@@ -118,9 +155,12 @@ class Rx(torch.nn.Module):
             "t_sym": np.arange(S, dtype=np.float32) * (N + cp),
             "ksc": np.arange(N, dtype=np.float32) - N // 2,
             "preset_snrs": preset_snrs,
-            "Tm": time_interp_matrix(psdef.u, psdef.b, S, 1,
+            "Tm": time_interp_matrix(psdef.u, psdef.b, S, N_TS,
                                      "lr_t").astype(np.complex64),
         }
+        if N_TS > 1:
+            for name, n_cells in (("pcc", 98), ("pdc", ps.N_PDC_subc)):
+                tables[f"{name}_tsa"], tables[f"{name}_tsb"] = _pair_ts(n_cells, N_TS)
         for i, Wf in enumerate(Wf_bank):
             for c in self.comb_vals:
                 tables[f"wf{i}_{c}"] = Wf[c]
@@ -132,7 +172,7 @@ class Rx(torch.nn.Module):
         """Frequency interpolation of the DRS ZF estimates with bank entry i:
         [B,R,T,n_symb,n4] -> [B,R,T,n_symb,N_occ]."""
         B, R = h_zf.shape[:2]
-        hf = torch.zeros((B, R, 1, self.n_drs_symb, self.N_occ),
+        hf = torch.zeros((B, R, self.N_TS, self.n_drs_symb, self.N_occ),
                          dtype=torch.complex64, device=h_zf.device)
         for c in self.comb_vals:
             hc = torch.einsum("brtnp,kp->brtnk", h_zf, getattr(self, f"wf{i}_{c}"))
@@ -143,7 +183,7 @@ class Rx(torch.nn.Module):
     def forward(self, iq: torch.Tensor, noise_var) -> dict:
         B, R = iq.shape[0], iq.shape[1]
         N, S, cp, N_occ, n4 = self.N, self.S, self.cp, self.N_occ, self.n4
-        ps, ns, P_stf = self.ps, self.n_drs_symb, self.P_stf
+        ps, ns, P_stf, N_TS = self.ps, self.n_drs_symb, self.P_stf, self.N_TS
         nv_bin = noise_var * N_occ / N
 
         # residual fractional CFO from STF pattern pairs: lag P, then lag 3P
@@ -168,8 +208,8 @@ class Rx(torch.nn.Module):
         grid[:, :, 1:1 + ps.N_DF_symb] = Y.to(torch.complex64)
         gf = grid.reshape(B, R, S * N)
 
-        # DRS ZF estimates [B,R,1,n_symb,n4]
-        h_zf = (gf[..., self.drs_lin] * self.drs_conj).reshape(B, R, 1, ns, n4)
+        # DRS ZF estimates [B,R,T,n_symb,n4]
+        h_zf = (gf[..., self.drs_lin] * self.drs_conj).reshape(B, R, N_TS, ns, n4)
 
         # residual-CFO refinement from the DRS symbol-pair phase progression
         if ns >= 2:
@@ -179,7 +219,7 @@ class Rx(torch.nn.Module):
             ph = _cexp(-(cfo2[:, None] * self.t_sym))
             grid = grid * ph[:, None, :, None]
             gf = grid.reshape(B, R, S * N)
-            h_zf = (gf[..., self.drs_lin] * self.drs_conj).reshape(B, R, 1, ns, n4)
+            h_zf = (gf[..., self.drs_lin] * self.drs_conj).reshape(B, R, N_TS, ns, n4)
             cfo_res = cfo_res + cfo2
 
         # fractional STO: phase slope across the DRS pilots
@@ -197,8 +237,8 @@ class Rx(torch.nn.Module):
         snr_lin = (spn - nois).clamp_min(1e-10) / nois.clamp_min(1e-10)
         snr_db = 10.0 * torch.log10(snr_lin)
 
-        h_end = h_zf[..., -1, :]                                  # [B,R,1,n4]
-        h_cells = h_end[..., :n4 // 4 * 4].reshape(B, R, 1, 4, -1).mean(-1)
+        h_end = h_zf[..., -1, :]                                  # [B,R,T,n4]
+        h_cells = h_end[..., :n4 // 4 * 4].reshape(B, R, N_TS, 4, -1).mean(-1)
 
         # frequency interpolation: SNR x selectivity one-hot mix of the bank
         snr_idx = (snr_db[:, None] - self.preset_snrs).abs().argmin(1)
@@ -211,9 +251,17 @@ class Rx(torch.nn.Module):
         hf = sum(sel[:, i, None, None, None, None] * self._interp(h_zf, i)
                  for i in range(self.n_wf))
         chest = torch.einsum("tsn,brtnk->brtsk", self.Tm, hf)
-        cf = chest.reshape(B, R, 1, S * N_occ)
+        cf = chest.reshape(B, R, N_TS, S * N_occ)
         return self._finish(gf, cf, theta, sto_frac, cfo_res, snr_db, h_cells,
                             nv_bin, B)
+
+    def _combine(self, y, h, name):
+        """MRC over the RX rows for one transmit stream, Alamouti otherwise:
+        y [B,R,n], h [B,R,T,n] -> (x_eq [B,n], csi [B,n])."""
+        if self.N_TS == 1:
+            return _mrc(y, h[:, :, 0])
+        return _alamouti(y, h, getattr(self, f"{name}_tsa"),
+                         getattr(self, f"{name}_tsb"))
 
     def _finish(self, gf, cf, theta, sto_frac, cfo_res, snr_db, h_cells,
                 nv_bin, B):
@@ -224,13 +272,15 @@ class Rx(torch.nn.Module):
         gf = (gf.reshape(B, R_, S, N) * tbl[:, None, None, :]).reshape(B, R_, S * N)
 
         # PCC: combine, demap QPSK, blind decode both PLCF types
-        x_pcc, csi_pcc = _mrc(gf[..., self.pcc_lin], cf[..., self.pcc_locc][:, :, 0])
+        x_pcc, csi_pcc = self._combine(gf[..., self.pcc_lin], cf[..., self.pcc_locc],
+                                       "pcc")
         llr_pcc = demap_llr(x_pcc, csi_pcc, 2, nv_bin)
         a1, ok1, cl1, bf1 = pcc_decode(llr_pcc, 1, self.n_iter)
         a2, ok2, cl2, bf2 = pcc_decode(llr_pcc, 2, self.n_iter)
 
         # PDC: combine, demap, turbo decode, TB CRC
-        x_pdc, csi_pdc = _mrc(gf[..., self.pdc_lin], cf[..., self.pdc_locc][:, :, 0])
+        x_pdc, csi_pdc = self._combine(gf[..., self.pdc_lin], cf[..., self.pdc_locc],
+                                       "pdc")
         llr_pdc = demap_llr(x_pdc, csi_pdc, ps.mcs.N_bps, nv_bin)
         tb, tb_ok = pdc_decode(llr_pdc, self.plan, self.network_id,
                                self.plcf_type, n_iter=self.n_iter)
@@ -244,8 +294,10 @@ class Rx(torch.nn.Module):
 
 
 def build_rx(psdef: PacketSizesDef, network_id: int, plcf_type: int,
-             n_iter: int = 6, **options) -> Rx:
-    """Aligned RX module for one packet configuration (dectnrp_tpu/phy/rx.py:120).
+             n_iter: int = 6, device: torch.device | str = "cuda",
+             **options) -> Rx:
+    """Aligned RX module for one packet configuration (dectnrp_tpu/phy/rx.py:120),
+    on `device`.
 
     `options` takes the JAX builder's chestim options, each only at its
     default (`RX_DEFAULTS`); any other value is not ported yet."""
@@ -254,4 +306,4 @@ def build_rx(psdef: PacketSizesDef, network_id: int, plcf_type: int,
             raise TypeError(f"build_rx: unknown option {k!r}")
         if v != RX_DEFAULTS[k]:
             raise NotImplementedError(f"build_rx: {k}={v!r} is not ported yet")
-    return Rx(psdef, network_id, plcf_type, n_iter)
+    return Rx(psdef, network_id, plcf_type, n_iter).to(device)

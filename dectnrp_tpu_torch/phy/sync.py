@@ -168,9 +168,11 @@ class Sync(torch.nn.Module):
 
 def build_sync(u: int, b: int, T: int,
                neff_candidates: tuple[int, ...] = (1, 2, 4, 8),
-               params: SyncParams = SyncParams(), max_peaks: int = 1) -> Sync:
-    """Sync module for a [B, N_RX, T] chunk (dectnrp_tpu/phy/sync.py:108)."""
-    return Sync(u, b, T, neff_candidates, params, max_peaks)
+               params: SyncParams = SyncParams(), max_peaks: int = 1,
+               device: torch.device | str = "cuda") -> Sync:
+    """Sync module for a [B, N_RX, T] chunk (dectnrp_tpu/phy/sync.py:108),
+    on `device`."""
+    return Sync(u, b, T, neff_candidates, params, max_peaks).to(device)
 
 
 class RxStream(torch.nn.Module):
@@ -179,11 +181,12 @@ class RxStream(torch.nn.Module):
     rx_stream(iq [B, N_RX, T], t0 [B], cfo [B], noise_var) -> rx dict.
     """
 
-    def __init__(self, psdef, network_id: int, plcf_type: int, T: int, **rx_kw):
+    def __init__(self, psdef, network_id: int, plcf_type: int, T: int,
+                 device: torch.device | str, **rx_kw):
         super().__init__()
         from .rx import build_rx
 
-        self.rx = build_rx(psdef, network_id, plcf_type, **rx_kw)
+        self.rx = build_rx(psdef, network_id, plcf_type, device=device, **rx_kw)
         self.n_pkt = self.rx.ps.N_samples_packet
         if T < self.n_pkt:
             raise ValueError("build_rx_stream: stream shorter than one packet")
@@ -199,6 +202,6 @@ class RxStream(torch.nn.Module):
 
 
 def build_rx_stream(psdef, network_id: int, plcf_type: int, T: int,
-                    **rx_kw) -> RxStream:
-    """Stream RX module (dectnrp_tpu/phy/sync.py:392)."""
-    return RxStream(psdef, network_id, plcf_type, T, **rx_kw)
+                    device: torch.device | str = "cuda", **rx_kw) -> RxStream:
+    """Stream RX module (dectnrp_tpu/phy/sync.py:392), on `device`."""
+    return RxStream(psdef, network_id, plcf_type, T, device, **rx_kw)

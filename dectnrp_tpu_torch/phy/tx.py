@@ -4,11 +4,13 @@ Reference: lib/src/phy/tx/tx.cpp:165-314. Bits -> FEC -> QAM -> one grid
 scatter -> beamforming einsum -> batched IFFT + CP -> STF assembly + cover
 sequence -> GI, at the native DECT rate.
 
-This slice covers one transmit stream (N_TS = 1, any N_TX through the
-first beamforming matrix W of the codebook), redundancy version 0 and no
-TX windowing; other codebook entries, redundancy versions and modes raise
-NotImplementedError (Alamouti/spatial multiplexing, beamforming codebooks
-and `window_fraction` are queued in ROADMAP.md).
+The port covers one spatial stream (N_SS = 1): a single transmit stream, or
+N_TS = 2/4/8 transmit streams by Alamouti transmit diversity (JAX
+tx.py:26-42, 108-116), mapped onto the N_TX antennas through the first
+beamforming matrix W of the codebook; redundancy version 0 and no TX
+windowing. Spatial multiplexing (N_SS > 1), other codebook entries,
+redundancy versions and `window_fraction` raise NotImplementedError (queued
+in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,8 +22,14 @@ from ..sections.part3.packet_sizes import PacketSizesDef
 from ..sections.part3.stf import cover_sequence, n_stf_patterns
 from .fec.chain import PdcPlan, pcc_encode, pdc_encode
 from .modulation import map_bits
-from .packet_config import get_packet_luts
+from .packet_config import AlamoutiLuts, get_packet_luts
 from .plan import register_tables
+
+
+def _alamouti_tables(al: AlamoutiLuts, name: str) -> dict:
+    return {f"{name}_a": al.a.astype(np.complex64),
+            f"{name}_b": al.b.astype(np.complex64),
+            f"{name}_ga": al.ga, f"{name}_gb": al.gb}
 
 
 class Tx(torch.nn.Module):
@@ -34,8 +42,9 @@ class Tx(torch.nn.Module):
         super().__init__()
         luts = get_packet_luts(psdef)
         ps = luts.ps
-        if ps.tm_mode.N_TS != 1:
-            raise NotImplementedError("build_tx: N_TS > 1 is not ported yet")
+        if ps.tm_mode.N_SS != 1:
+            raise NotImplementedError("build_tx: N_SS > 1 (spatial multiplexing) "
+                                      "is not ported yet")
         if window_fraction > 0.0:
             raise NotImplementedError("build_tx: TX windowing is not ported yet")
         if codebook_idx or rv:
@@ -44,15 +53,19 @@ class Tx(torch.nn.Module):
         self.ps, self.network_id, self.plcf_type = ps, network_id, plcf_type
         q = ps.numerology
         self.N, self.S, self.cp = q.N_b_DFT, ps.N_PACKET_symb, q.N_b_CP
-        self.N_TX = ps.tm_mode.N_TX
+        self.N_TX, self.N_TS = ps.tm_mode.N_TX, ps.tm_mode.N_TS
         self.plan = PdcPlan.get(ps.N_TB_bits, ps.G, ps.mcs.N_bps, psdef.Z)
         self.scale = luts.tx_scale
-        W = get_W(1, self.N_TX, 0).astype(np.complex64)            # [N_TX, 1]
-        register_tables(self, {
+        W = get_W(self.N_TS, self.N_TX, 0).astype(np.complex64)    # [N_TX, N_TS]
+        tables = {
             "drs_idx": luts.drs_flat_idx, "drs_val": luts.drs_values,
             "pcc_idx": luts.pcc_flat_idx.ravel(),
             "pdc_idx": luts.pdc_flat_idx.ravel(), "W": W,
-            "stf": self._stf(W, luts.stf_grid, psdef.u, psdef.b)})
+            "stf": self._stf(W, luts.stf_grid, psdef.u, psdef.b)}
+        if self.N_TS > 1:
+            tables.update(_alamouti_tables(luts.pcc_alamouti, "pcc"))
+            tables.update(_alamouti_tables(luts.pdc_alamouti, "pdc"))
+        register_tables(self, tables)
 
     def _stf(self, W, stf_grid, u, b):
         """STF [N_TX, n_pat*16b]: base pattern from its IFFT, n_pat
@@ -66,6 +79,15 @@ class Tx(torch.nn.Module):
         reps = pattern[:, None, :].expand(-1, n_pat, -1) * cover[None, :, None]
         return reps.reshape(self.N_TX, -1).to(torch.complex64).numpy()
 
+    def _spread(self, x, name):
+        """Cells [B, n] -> transmit streams [B, N_TS, n] (Alamouti for N_TS > 1):
+        out[t, i] = a[t, i] x[ga[t, i]] + b[t, i] conj(x[gb[t, i]])."""
+        if self.N_TS == 1:
+            return x[:, None, :]
+        a, bm = getattr(self, f"{name}_a"), getattr(self, f"{name}_b")
+        ga, gb = getattr(self, f"{name}_ga"), getattr(self, f"{name}_gb")
+        return a * x[:, ga] + bm * torch.conj(x[:, gb])
+
     def forward(self, plcf_bits, tb_bits, cl, bf):
         B = plcf_bits.shape[0]
         ps, N, S, cp = self.ps, self.N, self.S, self.cp
@@ -75,12 +97,13 @@ class Tx(torch.nn.Module):
                            self.plcf_type)                        # [B, G]
         x_pdc = map_bits(e_pdc, ps.mcs.N_bps)
 
-        grid = torch.zeros((B, S * N), dtype=torch.complex64,
+        grid = torch.zeros((B, self.N_TS * S * N), dtype=torch.complex64,
                            device=plcf_bits.device)
         grid[:, self.drs_idx] = self.drs_val
-        grid[:, self.pcc_idx] = x_pcc
-        grid[:, self.pdc_idx] = x_pdc
-        grid_tx = torch.einsum("at,btsn->basn", self.W, grid.reshape(B, 1, S, N))
+        grid[:, self.pcc_idx] = self._spread(x_pcc, "pcc").reshape(B, -1)
+        grid[:, self.pdc_idx] = self._spread(x_pdc, "pdc").reshape(B, -1)
+        grid_tx = torch.einsum("at,btsn->basn", self.W,
+                               grid.reshape(B, self.N_TS, S, N))
 
         df = grid_tx[:, :, 1:1 + ps.N_DF_symb]                    # [B,N_TX,N_DF,N]
         body = torch.fft.ifft(torch.fft.ifftshift(df, dim=-1), dim=-1) * self.scale
@@ -94,6 +117,9 @@ class Tx(torch.nn.Module):
 
 def build_tx(psdef: PacketSizesDef, network_id: int, plcf_type: int,
              codebook_idx: int = 0, rv: int = 0,
-             window_fraction: float = 0.0) -> Tx:
-    """TX module for one packet configuration (dectnrp_tpu/phy/tx.py:46)."""
-    return Tx(psdef, network_id, plcf_type, codebook_idx, rv, window_fraction)
+             window_fraction: float = 0.0,
+             device: torch.device | str = "cuda") -> Tx:
+    """TX module for one packet configuration (dectnrp_tpu/phy/tx.py:46),
+    on `device`."""
+    return Tx(psdef, network_id, plcf_type, codebook_idx, rv,
+              window_fraction).to(device)

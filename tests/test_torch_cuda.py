@@ -72,3 +72,48 @@ def test_sync_kernel_matches_plain(dev, u, b, R):
     assert ok.float().mean() > 0.9
     torch.testing.assert_close(got[ok], want[ok], rtol=2e-3, atol=2e-4)
     assert got[0].max() > thr
+
+
+RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),
+          (9, 10), (27, 40), (9, 20), (27, 80), (1, 2)]
+
+
+@pytest.mark.parametrize("LM", RATIOS)
+@pytest.mark.parametrize("rows,n_in", [(3, 1), (2, 997), (64, 23040)])
+def test_polyphase_kernel_matches_plain(dev, LM, rows, n_in):
+    """Every ratio at a one-sample input, a ragged edge (n_in not a multiple
+    of M, several tiles) and the wall step's 10/9 shape; both the one-shot
+    frame offset m0 < 0 and a streaming offset >= 0."""
+    from dectnrp_tpu_torch.phy.ops import polyphase
+    from dectnrp_tpu_torch.phy.resampler import ResamplerPlan, _design
+
+    L, M = LM
+    G, m0, W = _design(ResamplerPlan(L, M))
+    taps = torch.as_tensor(G, device=dev)
+    g = torch.Generator(device=dev).manual_seed(L * M + n_in)
+    x = torch.randn((rows, n_in), dtype=torch.complex64, generator=g, device=dev)
+    for off in (m0, max(0, -m0) + m0):
+        n_out = -(-n_in * L // M)
+        n0 = polyphase.launches
+        got = polyphase.polyphase_fir(x, taps, L, M, off, n_out)
+        assert polyphase.launches == n0 + 1
+        want = polyphase.polyphase_fir_plain(x, taps, L, M, off, n_out)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_polyphase_wrapper_rejects_bad_input(dev):
+    from dectnrp_tpu_torch.phy.ops import polyphase
+    from dectnrp_tpu_torch.phy.resampler import ResamplerPlan, _design
+
+    taps = torch.as_tensor(_design(ResamplerPlan(10, 9))[0], device=dev)
+    x = torch.zeros((4, 90), dtype=torch.complex64, device=dev)
+    n0 = polyphase.launches
+    with pytest.raises(ValueError):
+        polyphase.polyphase_fir(x.T.contiguous().T, taps, 10, 9, -11, 100)
+    with pytest.raises(ValueError):
+        polyphase.polyphase_fir(x.to(torch.complex128), taps, 10, 9, -11, 100)
+    with pytest.raises(ValueError):
+        polyphase.polyphase_fir(x.real.double(), taps, 10, 9, -11, 100)
+    with pytest.raises(ValueError):
+        polyphase.polyphase_fir(x, taps, 10, 3, -11, 100)
+    assert polyphase.launches == n0

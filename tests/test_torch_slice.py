@@ -1,12 +1,19 @@
-"""The port's flagship-shaped stream step vs the JAX package, end to end.
+"""The port's stream steps vs the JAX package, end to end.
 
-The step of bench.py::_make_step (TX -> scatter at offsets -> AWGN -> sync
-with multi-peak masking -> per-packet stream RX) at a small size:
-PacketSizesDef(1, 1, 0, 2, 0, 4, 6144) has K = 960, so its PDC runs the
-windowed BCJR (the CUDA kernel's plain twin here), and the sync runs the
-detection kernel's plain twin. B = 2 streams of 4 packet lengths + 1024
-samples with 2 packets each. One numpy noise draw is added on both sides.
+The step of bench.py::_make_step (TX -> [10/9 resampler] -> scatter at
+offsets -> AWGN -> [9/10 resampler] -> sync with multi-peak masking ->
+per-packet stream RX) at small sizes:
+- flagship-shaped: PacketSizesDef(1, 1, 0, 2, 0, 4, 6144) has K = 960, so
+  its PDC runs the windowed BCJR (the CUDA kernel's plain twin here), and
+  the sync runs the detection kernel's plain twin. B = 2 streams of 4
+  packet lengths + 1024 samples with 2 packets each.
+- wall-shaped: PacketSizesDef(1, 1, 0, 3, 5, 2, 6144), N_TX = 4 Alamouti
+  with the resampler in both directions (the polyphase kernel's plain twin),
+  K = 768; B = 2 streams with 1 packet each at 20 dB.
+One numpy noise draw is added on both sides.
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -56,7 +63,8 @@ def test_flagship_shaped_step_matches_jax():
                    jnp.float32(nv)) for k in range(n_pkts)]
 
     # ---- the port, through its step's stages
-    step = make_flagship_step(TPacketSizesDef(1, 1, 0, 2, 0, 4, 6144), T, n_pkts)
+    step = make_flagship_step(TPacketSizesDef(1, 1, 0, 2, 0, 4, 6144), T, n_pkts,
+                              device="cpu")
     n_bcjr, n_sync = bcjr_cuda.launches, sync_detect.launches
     iq_t = step.tx(torch.as_tensor(plcf), torch.as_tensor(tb),
                    torch.zeros(B, dtype=torch.bool), torch.zeros(B, dtype=torch.bool))
@@ -89,10 +97,80 @@ def test_flagship_shaped_step_matches_jax():
     assert (bcjr_cuda.launches, sync_detect.launches) == (n_bcjr, n_sync)
 
 
-@pytest.mark.parametrize("tm", [
-    0,
-    3,      # N_TX = 2 through codebook entry 0, 2 RX rows
-])
+def test_wall_shaped_step_matches_jax():
+    from dectnrp_tpu.phy.resampler import ResamplerPlan, build_resampler
+    from dectnrp_tpu.phy.sync import build_rx_stream, build_sync
+    from dectnrp_tpu.phy.tx import build_tx
+    from dectnrp_tpu_torch.loopback import make_wall_step, packet_offsets
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
+
+    psdef = PacketSizesDef(1, 1, 0, 3, 5, 2, 6144)
+    ps = get_packet_sizes(psdef)
+    n_pkt = ps.N_samples_packet
+    B, T = 2, 3 * n_pkt + 1024
+    step = make_wall_step(TPacketSizesDef(1, 1, 0, 3, 5, 2, 6144), T,
+                          device="cpu")
+    # the bench's roundings (bench.py:52-58)
+    n_pkt_hw, T_hw = -(-n_pkt * 10 // 9), -(-T * 10 // 9) // 10 * 10
+    T_dect = -(-T_hw * 9 // 10)
+    assert (step.n_pkt, step.T, step.T_dect) == (n_pkt_hw, T_hw, T_dect)
+    nv = np.float32(10.0 ** (-20.0 / 10.0))
+    rng = np.random.default_rng(11)
+    plcf = rng.integers(0, 2, (B, 40)).astype(np.uint8)
+    tb = rng.integers(0, 2, (B, ps.N_TB_bits)).astype(np.uint8)
+    offs = packet_offsets(rng, B, 1, T_hw, n_pkt_hw)
+    noise = (np.sqrt(nv / 2) * (rng.standard_normal((B, 4, T_hw))
+                                + 1j * rng.standard_normal((B, 4, T_hw)))
+             ).astype(np.complex64)
+
+    # ---- JAX reference, stage by stage as in bench.py:63-90
+    fl = jnp.zeros((B,), bool)
+    iq_j = build_tx(psdef, NID, 1)(jnp.asarray(plcf), jnp.asarray(tb), fl, fl)
+    up_j = np.asarray(build_resampler(ResamplerPlan(10, 9), n_pkt)(iq_j))
+    y = noise.copy()
+    for i in range(B):
+        y[i, :, offs[i, 0]:offs[i, 0] + n_pkt_hw] += up_j[i]
+    down_j = np.asarray(build_resampler(ResamplerPlan(9, 10), T_hw)(jnp.asarray(y)))
+    rep_j = build_sync(psdef.u, psdef.b, T_dect)(jnp.asarray(down_j))
+    out_j = build_rx_stream(psdef, NID, 1, T_dect)(
+        jnp.asarray(down_j), rep_j["t_fine"], rep_j["cfo"], jnp.float32(nv))
+
+    # ---- the port, through its step's stages
+    launches = (bcjr_cuda.launches, sync_detect.launches, polyphase.launches)
+    pl_t, tb_t = torch.as_tensor(plcf), torch.as_tensor(tb)
+    up_t = step.resample_up(step.transmit(pl_t, tb_t))
+    np.testing.assert_allclose(up_t.numpy(), up_j, rtol=1e-4, atol=1e-5)
+    y_t = step.scatter(up_t, torch.as_tensor(offs)) + torch.as_tensor(noise)
+    down_t = step.resample_down(y_t)
+    np.testing.assert_allclose(down_t.numpy(), down_j, rtol=1e-4, atol=1e-5)
+    rep_t = step.sync(down_t)
+    for k in ("t_fine", "detected", "n_eff_tx"):
+        np.testing.assert_array_equal(rep_t[k].numpy(), np.asarray(rep_j[k]),
+                                      err_msg=k)
+    ok, det, tf = step.receive(down_t)
+    np.testing.assert_array_equal(tf[:, 0].numpy(), np.asarray(rep_j["t_fine"]))
+    o_t = step.rxs(down_t, tf[:, 0], rep_t["cfo"], step.noise_var)
+    for key in ("tb_ok", "tb", "plcf1", "plcf1_ok"):
+        np.testing.assert_array_equal(o_t[key].numpy(), np.asarray(out_j[key]),
+                                      err_msg=key)
+    np.testing.assert_array_equal(ok[:, 0].numpy(), np.asarray(out_j["tb_ok"]))
+    # operating SNR: everything decodes, and the decoded bits are the sent ones
+    assert ok.numpy().all() and det.numpy().all()
+    np.testing.assert_array_equal(o_t["tb"].numpy(), tb)
+    np.testing.assert_array_equal(o_t["plcf1"].numpy(), plcf)
+    # CPU tensors never launch a kernel
+    assert (bcjr_cuda.launches, sync_detect.launches,
+            polyphase.launches) == launches
+
+
+#: aligned-RX configurations by tm mode: SISO, N_TX = 2 through codebook
+#: entry 0 (2 RX rows), Alamouti over 2 and over 4 transmit streams
+ALIGNED = {0: (1, 2, 0, 2, 0, 3, 6144), 3: (1, 2, 0, 2, 3, 3, 6144),
+           1: (1, 2, 0, 2, 1, 3, 6144), 5: (1, 1, 0, 3, 5, 2, 6144)}
+
+
+@pytest.mark.parametrize("tm", [0, 3, 1, 5])
 def test_aligned_rx_matches_jax(tm):
     """build_rx and build_tx at their defaults on aligned packets (no sync)
     against the JAX builders."""
@@ -101,8 +179,8 @@ def test_aligned_rx_matches_jax(tm):
     from dectnrp_tpu_torch.phy.rx import build_rx as t_build_rx
     from dectnrp_tpu_torch.phy.tx import build_tx as t_build_tx
 
-    psdef = PacketSizesDef(1, 2, 0, 2, tm, 3, 6144)
-    psdef_t = TPacketSizesDef(1, 2, 0, 2, tm, 3, 6144)
+    psdef = PacketSizesDef(*ALIGNED[tm])
+    psdef_t = TPacketSizesDef(*ALIGNED[tm])
     ps = get_packet_sizes(psdef)
     B = 3
     rng = np.random.default_rng(tm)
@@ -111,7 +189,7 @@ def test_aligned_rx_matches_jax(tm):
     fl = np.zeros((B,), bool)
     iq_j = np.asarray(build_tx(psdef, NID, 1)(
         jnp.asarray(plcf), jnp.asarray(tb), jnp.asarray(fl), jnp.asarray(fl)))
-    iq_t = t_build_tx(psdef_t, NID, 1)(
+    iq_t = t_build_tx(psdef_t, NID, 1, device="cpu")(
         torch.as_tensor(plcf), torch.as_tensor(tb), torch.as_tensor(fl),
         torch.as_tensor(fl)).numpy()
     np.testing.assert_allclose(iq_t, iq_j, rtol=1e-4, atol=1e-5)
@@ -122,7 +200,7 @@ def test_aligned_rx_matches_jax(tm):
          ).astype(np.complex64)
     y *= np.exp(1j * 1e-4 * np.arange(y.shape[-1])).astype(np.complex64)
     o_j = build_rx(psdef, NID, 1)(jnp.asarray(y), jnp.float32(nv))
-    o_t = t_build_rx(psdef_t, NID, 1)(torch.as_tensor(y), float(nv))
+    o_t = t_build_rx(psdef_t, NID, 1, device="cpu")(torch.as_tensor(y), float(nv))
     for key in ("plcf1", "plcf1_ok", "plcf2_ok", "plcf1_cl", "plcf1_bf"):
         np.testing.assert_array_equal(o_t[key].numpy(), np.asarray(o_j[key]),
                                       err_msg=key)
@@ -147,13 +225,44 @@ def test_aligned_rx_matches_jax(tm):
     ("tx", {"codebook_idx": 3}),
     ("tx", {"rv": 2}),
     ("tx", {"window_fraction": 0.1}),
+    ("rx", {"tm": 2}),      # N_SS = 2: MMSE / spatial multiplexing
+    ("tx", {"tm": 2}),
 ])
 def test_unported_options_raise(builder, kw):
-    """Options the JAX builders take beyond the slice's defaults are refused,
-    not silently run at their defaults."""
+    """Options and modes the JAX builders take beyond the port's are refused,
+    not silently run at the port's defaults."""
     from dectnrp_tpu_torch.phy.rx import build_rx
     from dectnrp_tpu_torch.phy.tx import build_tx
 
     build = build_rx if builder == "rx" else build_tx
+    kw = dict(kw)
+    tm = kw.pop("tm", 0)
     with pytest.raises(NotImplementedError):
-        build(TPacketSizesDef(1, 2, 0, 2, 0, 3, 6144), NID, 1, **kw)
+        build(TPacketSizesDef(1, 2, 0, 2, tm, 3, 6144), NID, 1, device="cpu", **kw)
+
+
+def test_builders_default_to_the_card():
+    """Every builder and step factory builds on "cuda" unless asked, and
+    device="cpu" puts every buffer of the module on the CPU."""
+    from dectnrp_tpu_torch import loopback
+    from dectnrp_tpu_torch.phy import resampler, rx, sync, tx
+
+    builders = [tx.build_tx, sync.build_sync, rx.build_rx, sync.build_rx_stream,
+                resampler.build_resampler, resampler.build_resampler_stream,
+                loopback.make_flagship_step, loopback.make_wall_step]
+    for f in builders:
+        assert inspect.signature(f).parameters["device"].default == "cuda", f
+    psdef = TPacketSizesDef(1, 1, 0, 3, 5, 2, 6144)
+    plan = resampler.ResamplerPlan(10, 9)
+    mods = [tx.build_tx(psdef, NID, 1, device="cpu"),
+            sync.build_sync(1, 1, 4000, device="cpu"),
+            rx.build_rx(psdef, NID, 1, device="cpu"),
+            sync.build_rx_stream(psdef, NID, 1, 4000, device="cpu"),
+            resampler.build_resampler(plan, 900, device="cpu"),
+            resampler.build_resampler_stream(plan, 900, device="cpu"),
+            loopback.make_flagship_step(TPacketSizesDef(1, 1, 0, 2, 0, 4, 6144),
+                                        device="cpu"),
+            loopback.make_wall_step(psdef, device="cpu")]
+    for m in mods:
+        bufs = list(m.buffers())
+        assert bufs and all(b.device.type == "cpu" for b in bufs), type(m)

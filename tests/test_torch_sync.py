@@ -154,7 +154,8 @@ def test_sync_report_matches_jax(max_peaks):
 
     rj = build_sync(1, 8, T, max_peaks=max_peaks,
                     detect_impl="pallas_interpret")(jnp.asarray(stream))
-    rt = t_build_sync(1, 8, T, max_peaks=max_peaks)(torch.as_tensor(stream))
+    rt = t_build_sync(1, 8, T, max_peaks=max_peaks, device="cpu")(
+        torch.as_tensor(stream))
     assert rt.keys() == {k for k in rj}
     for k in ("detected", "t_fine", "t_coarse", "n_eff_tx"):
         np.testing.assert_array_equal(rt[k].numpy(), np.asarray(rj[k]), err_msg=k)

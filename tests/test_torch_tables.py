@@ -30,8 +30,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # numpy-only modules the port copies (every dectnrp_tpu.phy module loads jax)
 COPIES = sorted(f"sections/part3/{p.name}" for p in
                 (ROOT / "dectnrp_tpu_torch/sections/part3").glob("*.py")) + [
-    "phy/packet_config.py", "phy/chestim.py", "phy/fec/qpp.py",
-    "phy/fec/crc.py", "phy/fec/rate_match.py"]
+    "phy/packet_config.py", "phy/chestim.py", "phy/filters.py",
+    "phy/fec/qpp.py", "phy/fec/crc.py", "phy/fec/rate_match.py"]
+# the resampler's ratios: get_resampler_fraction's set and the inverses
+RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),
+          (9, 10), (27, 40), (9, 20), (27, 80), (1, 2)]
 
 
 def _port_psdef(psdef):
@@ -210,6 +213,24 @@ def test_wiener_banks(u, b):
     _eq(Tc.freq_interp_matrices(b, "linear"), Jc.freq_interp_matrices(b, "linear"))
 
 
+@pytest.mark.parametrize("LM", RATIOS)
+def test_resampler_designs(LM):
+    """The polyphase banks (G, m0, W) for every ratio and oversampling
+    factor: the float64 Kaiser design cast to float32 must match bit for
+    bit."""
+    from dectnrp_tpu.phy import resampler as J
+    from dectnrp_tpu_torch.phy import resampler as T
+    from dectnrp_tpu_torch.phy.ops.polyphase import RATIOS as KERNEL_RATIOS
+
+    assert set(RATIOS) == KERNEL_RATIOS
+    for os in (1, 2, 4, 8):
+        _eq(T._design(T.ResamplerPlan(*LM, os)), J._design(J.ResamplerPlan(*LM, os)))
+    for k in J.F_PASS_NORM:
+        assert T.F_PASS_NORM[k] == J.F_PASS_NORM[k]
+        assert T.F_STOP_ATT_DB[k] == J.F_STOP_ATT_DB[k]
+    assert T.F_STOP_NORM == J.F_STOP_NORM
+
+
 def test_tables_to_device_keeps_values():
     from dectnrp_tpu_torch.phy.plan import tables_to_device
 
@@ -227,8 +248,9 @@ def test_tables_to_device_keeps_values():
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port, runs the small slice end to end
-    and loads neither jax (the card's machine has none) nor the JAX package."""
+    """A fresh interpreter imports the port, runs the small flagship- and
+    wall-shaped steps end to end and loads neither jax (the card's machine
+    has none) nor the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, torch
@@ -240,13 +262,25 @@ def test_port_runs_without_jax():
         psdef = PacketSizesDef(1, 1, 0, 2, 0, 4, 6144)
         ps = get_packet_sizes(psdef)
         T = 4 * ps.N_samples_packet + 1024
-        step = make_flagship_step(psdef, T, 2)
+        step = make_flagship_step(psdef, T, 2, device="cpu")
         rng = np.random.default_rng(7)
         plcf = torch.as_tensor(rng.integers(0, 2, (2, 40)), dtype=torch.uint8)
         tb = torch.as_tensor(rng.integers(0, 2, (2, ps.N_TB_bits)),
                              dtype=torch.uint8)
         offs = torch.as_tensor(packet_offsets(rng, 2, 2, T, ps.N_samples_packet))
         ok, det, tf = step(plcf, tb, offs, torch.Generator().manual_seed(0))
+        assert bool(ok.all()) and bool(det.all()), (ok, det)
+        # the wall-shaped step: Alamouti over 4 streams, 10/9 resampler
+        from dectnrp_tpu_torch.loopback import make_wall_step
+        psdef = PacketSizesDef(1, 1, 0, 3, 5, 2, 6144)
+        ps = get_packet_sizes(psdef)
+        step = make_wall_step(psdef, 3 * ps.N_samples_packet + 1024,
+                              device="cpu")
+        plcf = torch.as_tensor(rng.integers(0, 2, (2, 40)), dtype=torch.uint8)
+        tb = torch.as_tensor(rng.integers(0, 2, (2, ps.N_TB_bits)),
+                             dtype=torch.uint8)
+        offs = torch.as_tensor(packet_offsets(rng, 2, 1, step.T, step.n_pkt))
+        ok, det, tf = step(plcf, tb, offs, torch.Generator().manual_seed(1))
         assert bool(ok.all()) and bool(det.all()), (ok, det)
         assert "jax" not in sys.modules, "the port loaded jax"
         assert "dectnrp_tpu" not in sys.modules, "the port loaded the JAX package"
