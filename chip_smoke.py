@@ -1,15 +1,21 @@
-"""Drive the PyTorch + CUDA port's stream loopback steps once on one GPU.
+"""Drive the PyTorch + CUDA port's main paths once on one GPU.
 
     python3 chip_smoke.py
 
-Two main paths, each driven once through its step factory with every
+Three main paths, each driven once through its entry point with every
 kernel's launch count set to 0 just before it and read just after:
   flagship  make_flagship_step: u=1 b=16 SISO MCS4, B = 64 streams of
             T = 192,512 samples, 2 packets each, 15 dB, no resampler;
   wall      make_wall_step: u=1 b=8, N_TX = 4 Alamouti transmit diversity,
             MCS2, the 10/9 resampler in both directions (15.36 Ms/s radio
             rate), B = 16 streams of 85,900 radio-rate samples, 1 packet
-            each, 20 dB.
+            each, 20 dB;
+  fec_awgn  the FEC AWGN oracle (fec_awgn.sweep): psdef (1, 1, 0, 4, 0,
+            mcs, 6144) for MCS 0-9, 50 packets a point, HARQ rv 0,2,3,1
+            combined in HarqProcessRx, at 3 SNR points per MCS (w - 4, w,
+            w + 2 dB around the committed retx-0 waterfall w; cut in depth
+            from the oracle's 21 points), plus the bf16 and float32 kernel
+            decodes of each point's first-transmission softbuffers.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
@@ -19,6 +25,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      codeblocks and on as many as a step decodes in one call, at rtol 1e-4,
      atol 1e-3; and a turbo_decode_early round trip of 64 CRC-carrying
      codeblocks per K that must return the sent bits;
+  3b. bf16 BCJR kernel vs its plain twin, bit for bit (max |err| 0), at
+     K = 1056/5632/6016/6080 x 64, at the flagship's K = 6016 x 832 and
+     6080 x 192 and at K = 5632 x 50; turbo_decode(impl="cuda_bf16") at
+     K = 6144 x 4 returns the sent bits from clean +-4 LLRs (2 iterations)
+     and the float32 kernel's bits at sigma 1.0 (4 iterations);
   4. sync-detection kernel vs its plain twin at the flagship shape (b = 16),
      at b = 1 and at the wall shape (b = 8, 4 RX rows): sm within rtol 2e-3
      / atol 2e-4 away from gate ties, and the sync reports' t_fine, detected
@@ -31,12 +42,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
      flagship-shaped (u=1 b=1 SISO) and wall-shaped (u=1 b=1 N_TX = 4 with
      the resampler); then the flagship and the wall step, each with
      decode_ok >= 0.95, detected >= 0.95 and its kernels launched in the
-     step (the wall: polyphase exactly twice);
+     step (the wall: polyphase exactly twice), bcjr_bf16 in neither;
+  6b. the FEC oracle path: PER_retx0 <= 0.1 at w + 2, PER_retx3 <= 0.1 at
+     w - 4, PER never rising from one retransmission to the next; the
+     first-transmission softbuffers decoded by turbo_decode_early with
+     impl "cuda" and "cuda_bf16" (window 128, 8 iterations at most) give
+     the same crc_ok packet for packet at w - 4 and w + 2 (the
+     disagreements at w are recorded); both kernels launched on the path;
   7. times with CUDA events / synchronized host clocks: each step's median
      over 5 steps, its realtime multiple B*T / step time / radio rate,
      per-stage times, and each kernel next to its plain twin, its bound on
      the card and, where one PyTorch call computes the same function, that
-     call (conv1d for the polyphase FIR). The BCJR calls are timed eagerly;
+     call (conv1d for the polyphase FIR). The BCJR calls (float32 and
+     bf16 at K = 6016 x 832) are timed eagerly;
      the sync and polyphase calls, tens to hundreds of microseconds, by CUDA
      events around CUDA-graph replays (no host launch gaps), and eagerly;
   8. torch.profiler (device activity only) over one flagship and one wall
@@ -68,6 +86,11 @@ B_WALL, SNR_WALL = 16, 20.0
 # published NVIDIA H100 SXM peaks at 700 W: HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+# bf16 outside the tensor cores: twice the fp32 rate through bf16x2
+# instructions (NVIDIA H100 Tensor Core GPU Architecture white paper, peak
+# BF16 non-tensor 133.8 TFLOP/s on the SXM part)
+PEAK_BF16X2 = 2 * PEAK_FP32
+FEC_N, FEC_SNR_OFFSETS = 50, (-4.0, 0.0, 2.0)
 POLY_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
@@ -118,10 +141,11 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak_ops=PEAK_FP32):
     """(least time in ms on the card, "bytes" or "operations"): compulsory
-    bytes over the HBM rate vs float32 operations over the fp32 peak."""
-    t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    bytes over the HBM rate vs operations over their peak rate (float32
+    outside the tensor cores unless `peak_ops` says otherwise)."""
+    t_b, t_o = nbytes / PEAK_BYTES, ops / peak_ops
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -158,14 +182,15 @@ def poly_work(mod, rows):
 def counts():
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
     from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
-    return {"bcjr": bcjr_cuda.launches, "sync": sync_detect.launches,
-            "polyphase": polyphase.launches}
+    return {"bcjr": bcjr_cuda.launches, "bcjr_bf16": bcjr_cuda.launches_bf16,
+            "sync": sync_detect.launches, "polyphase": polyphase.launches}
 
 
 def zero_counts():
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
     from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
-    bcjr_cuda.launches = sync_detect.launches = polyphase.launches = 0
+    bcjr_cuda.launches = bcjr_cuda.launches_bf16 = 0
+    sync_detect.launches = polyphase.launches = 0
 
 
 def phase_bcjr(dev, report, main_shapes):
@@ -219,6 +244,127 @@ def phase_bcjr(dev, report, main_shapes):
           f"{max(errs):.3g}, rtol 1e-4 atol 1e-3); turbo round trip bits exact "
           f"in {iters} iterations", flush=True)
     return max(errs)
+
+
+def phase_bcjr_bf16(dev, report, main_shapes):
+    """bf16 kernel vs its plain twin, bit for bit, on 64 codeblocks per K,
+    at `main_shapes` and at the oracle's K = 5632 x 50; then the turbo
+    decoder's decisions through it at K = 6144 x 4."""
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.turbo import turbo_decode, turbo_encode
+
+    shapes = [(K, 64) for K in (1056, 5632, 6016, 6080)]
+    shapes += [*main_shapes.items(), (5632, FEC_N)]
+    errs = {}
+    for K, Bc in shapes:
+        g = torch.Generator(device=dev).manual_seed(K + Bc)
+        Lsys = torch.randn((K + 3, Bc), generator=g, device=dev) * 3
+        Lp = torch.randn((K + 3, Bc), generator=g, device=dev) * 3
+        got = bcjr_cuda.bcjr_posterior_cm_bf16(Lsys, Lp, K)
+        want = bcjr_cuda.bcjr_windowed_cm_bf16_plain(Lsys, Lp, K)
+        torch.cuda.synchronize()
+        require(torch.isfinite(got).all(), f"bf16 BCJR K={K} x {Bc}: non-finite")
+        errs[f"K{K}_{Bc}cb"] = (got - want).abs().max().item()
+        require(torch.equal(got, want), f"bf16 BCJR K={K} x {Bc}: kernel vs "
+                f"plain max |err| {errs[f'K{K}_{Bc}cb']} (must be 0)")
+
+    K, Bc, sigma = 6144, 4, 1.0
+    g = torch.Generator(device=dev).manual_seed(6144)
+    bits = torch.randint(0, 2, (Bc, K), generator=g, device=dev, dtype=torch.uint8)
+    d = turbo_encode(bits, K)
+    clean = torch.where(d > 0, 4.0, -4.0)
+    require(torch.equal(turbo_decode(clean, K, 2, impl="cuda_bf16")[0], bits),
+            "bf16 turbo decode of clean LLRs: bits differ")
+    noisy = (2.0 * d.float() - 1.0 + sigma * torch.randn(
+        d.shape, generator=g, device=dev)) * (2.0 / sigma ** 2)
+    o_b = turbo_decode(noisy, K, 4, impl="cuda_bf16")[0]
+    o_f = turbo_decode(noisy, K, 4, impl="cuda")[0]
+    require(torch.equal(o_b, o_f), "bf16 turbo decode at sigma 1.0: "
+            f"{int((o_b != o_f).sum())} bits differ from the float32 kernel's")
+    report["bcjr_bf16_check"] = {**errs, "sigma1_bits_equal_f32": True,
+                                 "sigma1_bit_errors": int((o_b != bits).sum())}
+    print("bcjr_bf16: kernel == plain twin bit for bit at K x codeblocks "
+          + ", ".join(f"{K} x {Bc}" for K, Bc in shapes)
+          + f" (max |err| {max(errs.values())}); turbo_decode(impl=cuda_bf16) "
+          f"K=6144 x 4: clean bits exact in 2 iterations, sigma 1.0 equal to "
+          f"impl=cuda in 4", flush=True)
+    return max(errs.values())
+
+
+def fec_waterfall(mcs):
+    """The committed retx-0 waterfall: the first SNR of
+    results/fec_awgn/fec_awgn_MCS_<mcs>.json with PER_retx0 <= 0.1."""
+    rec = json.loads((ROOT / f"results/fec_awgn/fec_awgn_MCS_{mcs:02d}.json")
+                     .read_text())
+    return next(s for s, p in zip(rec["experiment_range"]["snr_vec"],
+                                  rec["result"]["PER_retx0"]) if p <= 0.1)
+
+
+def phase_fec_awgn(dev, card, report):
+    """The FEC oracle over MCS 0-9 at w - 4, w, w + 2 (launch counts zeroed
+    before, read after), with its gates and the kernel decodes of the
+    first-transmission softbuffers."""
+    from dectnrp_tpu_torch import fec_awgn
+    from dectnrp_tpu_torch.phy.fec.chain import _pdc_crc_tables
+    from dectnrp_tpu_torch.phy.fec.turbo import turbo_decode_early
+    from dectnrp_tpu_torch.phy.plan import device_tables
+
+    res = {}
+    zero_counts()
+    for mcs in range(10):
+        w = fec_waterfall(mcs)
+        snrs = [w + o for o in FEC_SNR_OFFSETS]
+        plan = fec_awgn.build_fec_awgn_step(fec_awgn.fec_psdef(mcs), 0, dev).plan
+        m_k = device_tables(_pdc_crc_tables, (plan,), dev)["m_k"]
+        cmp = {"disagree": [], "ok_cuda": [], "ok_bf16": [], "s": 0.0}
+
+        def on_point(i, snr, soft0):
+            t0 = time.perf_counter()
+            (K, d), = soft0.items()            # one codeblock per TB here
+            ok = {impl: turbo_decode_early(d, m_k[K], K, n_iter_max=8,
+                                           n_iter_min=2, window=128,
+                                           impl=impl)[2].cpu()
+                  for impl in ("cuda", "cuda_bf16")}
+            n_dis = int((ok["cuda"] != ok["cuda_bf16"]).sum())
+            cmp["disagree"].append(n_dis)
+            cmp["ok_cuda"].append(float(ok["cuda"].float().mean()))
+            cmp["ok_bf16"].append(float(ok["cuda_bf16"].float().mean()))
+            cmp["s"] += time.perf_counter() - t0
+            require(i == 1 or n_dis == 0, f"fec_awgn MCS {mcs} at {snr:g} dB: "
+                    f"bf16 and float32 kernel decodes disagree on {n_dis} packets")
+
+        rec = fec_awgn.sweep(mcs, snrs, FEC_N, 3, dev, on_point=on_point)
+        per = [rec["result"][f"PER_retx{t}"] for t in range(4)]
+        require(per[0][2] <= 0.1, f"fec_awgn MCS {mcs}: PER_retx0 {per[0][2]} "
+                f"> 0.1 at w + 2 = {snrs[2]:g} dB")
+        require(per[3][0] <= 0.1, f"fec_awgn MCS {mcs}: PER_retx3 {per[3][0]} "
+                f"> 0.1 at w - 4 = {snrs[0]:g} dB")
+        for i, snr in enumerate(snrs):
+            seq = [per[t][i] for t in range(4)]
+            require(all(b <= a for a, b in zip(seq, seq[1:])),
+                    f"fec_awgn MCS {mcs} at {snr:g} dB: PER rises over the "
+                    f"retransmissions {seq}")
+        res[mcs] = {"w": w, "snr": snrs, "per": per,
+                    "ber": rec["result"]["BER_uncoded_vec"],
+                    "K": list(plan.cb_K), "oracle_s": rec["wall_s"] - cmp["s"],
+                    "kernel_decode_s": cmp["s"], **cmp}
+        print(f"[{card}] fec_awgn MCS {mcs} (K={plan.cb_K[0]}, w={w:g} dB): "
+              "PER retx0..3 at " + "; ".join(
+                  f"{s:g} dB " + "/".join(f"{per[t][i]:.2f}" for t in range(4))
+                  for i, s in enumerate(snrs))
+              + f"; bf16 vs float32 kernel disagreements {cmp['disagree']}; "
+              f"oracle {res[mcs]['oracle_s']:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    launches = counts()
+    require(launches["bcjr"] > 0 and launches["bcjr_bf16"] > 0,
+            f"fec_awgn: a BCJR kernel was not launched ({launches})")
+    report["fec_awgn"] = {"n": FEC_N, "rv": list(fec_awgn.RV_SEQ),
+                          "cut": "3 of the oracle's 21 SNR points per MCS",
+                          "mcs": res, "launches": launches}
+    print(f"fec_awgn: 10 MCS x 3 SNR points (cut from 21) x {FEC_N} packets x "
+          "rv 0,2,3,1 passed its gates; launches on the path: "
+          + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches
 
 
 def _sync_check(step, y, label, report):
@@ -489,8 +635,9 @@ def main() -> int:
     from dectnrp_tpu_torch import kernels
     from dectnrp_tpu_torch.loopback import (FLAGSHIP_PSDEF, WALL_PSDEF, hw_rate,
                                             make_flagship_step, make_wall_step)
-    from dectnrp_tpu_torch.phy.fec.bcjr_cuda import (bcjr_posterior_cm,
-                                                     bcjr_windowed_cm_plain)
+    from dectnrp_tpu_torch.phy.fec.bcjr_cuda import (
+        bcjr_posterior_cm, bcjr_posterior_cm_bf16, bcjr_windowed_cm_bf16_plain,
+        bcjr_windowed_cm_plain)
     from dectnrp_tpu_torch.phy.ops import sync_detect
 
     dev = torch.device("cuda", 0)
@@ -522,6 +669,7 @@ def main() -> int:
     wall_shapes = {K: n * B_WALL for K, n in Counter(wall.rxs.rx.plan.cb_K).items()}
     main_shapes = {**flag_shapes, **wall_shapes}
     bcjr_err = phase_bcjr(dev, report, main_shapes)
+    bf16_err = phase_bcjr_bf16(dev, report, flag_shapes)
 
     # ---- 4. sync kernel vs plain twin at the flagship shape, b = 1, the wall
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -553,6 +701,11 @@ def main() -> int:
     require(launches["wall"]["polyphase"] == 2 and launches["wall"]["bcjr"] > 0
             and launches["wall"]["sync"] > 0,
             f"wall: kernels not launched as expected ({launches['wall']})")
+    require(launches["flagship"]["bcjr_bf16"] == launches["wall"]["bcjr_bf16"] == 0,
+            "flagship/wall: the bf16 BCJR is not on these paths")
+
+    # ---- 6b. the FEC oracle path, counted
+    launches["fec_awgn"] = phase_fec_awgn(dev, card, report)
 
     # ---- 7. times [card]
     order = ("tx", "resample_up", "scatter", "awgn", "resample_down", "sync",
@@ -580,8 +733,17 @@ def main() -> int:
         bcjr_times[(Kc, Bc)] = (
             cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc)),
             cuda_ms(lambda: bcjr_windowed_cm_plain(Lsys, Lp, Kc), reps=3))
+        if (Kc, Bc) == (K, flag_shapes[K]):
+            # the bf16 kernel and its twin on the same inputs, in turns
+            bf16_ms = cuda_ms(lambda: bcjr_posterior_cm_bf16(Lsys, Lp, Kc))
+            bf16_plain_ms = cuda_ms(
+                lambda: bcjr_windowed_cm_bf16_plain(Lsys, Lp, Kc), reps=3)
+            bf16_ms_2 = cuda_ms(lambda: bcjr_posterior_cm_bf16(Lsys, Lp, Kc))
+            f32_ms_2 = cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc))
     bcjr_ms, bcjr_plain_ms = bcjr_times[(K, flag_shapes[K])]
     bcjr_bound = bound(*bcjr_work(K, flag_shapes[K]))
+    # the same work counted at the bf16x2 rate (bytes bind either way)
+    bf16_bound = bound(*bcjr_work(K, flag_shapes[K]), peak_ops=PEAK_BF16X2)
     s = step.sync
     sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold, s.params.metric_max)
     sync_ms = graph_ms(lambda: sync_detect.detect_sm(y, *sargs))
@@ -605,13 +767,19 @@ def main() -> int:
     report["kernel_ms"] = {
         **{f"bcjr_K{k}_{b}cb": t[0] for (k, b), t in bcjr_times.items()},
         **{f"bcjr_K{k}_{b}cb_plain": t[1] for (k, b), t in bcjr_times.items()},
+        f"bcjr_bf16_K{K}_{flag_shapes[K]}cb": [bf16_ms, bf16_ms_2],
+        f"bcjr_bf16_K{K}_{flag_shapes[K]}cb_plain": bf16_plain_ms,
+        f"bcjr_K{K}_{flag_shapes[K]}cb_repeat": f32_ms_2,
         "sync_flagship": sync_ms, "sync_flagship_plain": sync_plain_ms,
         "sync_flagship_eager": sync_eager_ms,
         "polyphase": poly}
     print(f"[{card}] kernels (CUDA events): "
           + "; ".join(f"bcjr K={k} x {b} cb {t[0]:.3f} ms vs plain {t[1]:.3f} ms"
                       for (k, b), t in bcjr_times.items())
-          + f" (bound {bcjr_bound[0]:.4f} ms, {bcjr_bound[1]}); sync sm "
+          + f" (bound {bcjr_bound[0]:.4f} ms, {bcjr_bound[1]}); bcjr_bf16 K={K} x "
+          f"{flag_shapes[K]} cb {bf16_ms:.3f} / {bf16_ms_2:.3f} ms (float32 "
+          f"kernel again {f32_ms_2:.3f} ms) vs plain {bf16_plain_ms:.3f} ms (bound "
+          f"{bf16_bound[0]:.4f} ms, {bf16_bound[1]}); sync sm "
           f"B={B_FLAG} T={step.T} {sync_ms:.3f} ms (eager {sync_eager_ms:.3f}) vs "
           f"plain {sync_plain_ms:.3f} ms (bound {sync_bound[0]:.4f} ms, "
           f"{sync_bound[1]}); "
@@ -640,6 +808,13 @@ def main() -> int:
          "launches": total("bcjr"), "launches_by_path": by_path("bcjr"),
          "max_abs_err": bcjr_err, "ms": bcjr_ms, "plain_ms": bcjr_plain_ms,
          "bound_ms": bcjr_bound[0], "bound_by": bcjr_bound[1],
+         "library_ms": None},
+        {"name": "bcjr_posterior_cm_bf16", "route": "cuda",
+         "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
+         "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:187",
+         "launches": total("bcjr_bf16"), "launches_by_path": by_path("bcjr_bf16"),
+         "max_abs_err": bf16_err, "ms": bf16_ms, "plain_ms": bf16_plain_ms,
+         "bound_ms": bf16_bound[0], "bound_by": bf16_bound[1],
          "library_ms": None},
         {"name": "sync_detect_sm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",

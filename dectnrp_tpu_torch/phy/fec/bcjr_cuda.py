@@ -1,17 +1,26 @@
-"""Sliding-window max-log-MAP BCJR: CUDA kernel wrapper and its plain twin.
+"""Sliding-window max-log-MAP BCJR: CUDA kernel wrappers and their plain twins.
 
-Port of dectnrp_tpu/phy/fec/bcjr_pallas.py::_pallas_bcjr_call (entry
-`bcjr_posterior_pallas_cm`). Column-major layout: Lsys (systematic +
-a-priori) and Lp are float32 [K+3, B] (trellis step x codeblock), the
-posterior is [K, B]. Windows of Lw = 128 steps acquire their boundary
-metrics over D = 32 extra steps on each side; the trellis ends start in the
-zero state, window boundaries uniform; steps outside [0, K+3) leave the
-metrics unchanged. Metrics are renormalized every step (subtract the max),
-as in turbo_jax._bcjr_posterior_windowed; the max-difference posterior
-cancels the offset either way.
+Two kernels, both column-major: Lsys (systematic + a-priori) and Lp are
+float32 [K+3, B] (trellis step x codeblock), the posterior is float32
+[K, B]. Windows of Lw = 128 steps acquire their boundary metrics over D = 32
+extra steps on each side; the trellis ends start in the zero state, window
+boundaries uniform; steps outside [0, K+3) leave the metrics unchanged.
 
-`bcjr_posterior_cm` launches the kernel (csrc/bcjr.cu) for CUDA tensors and
-runs `bcjr_windowed_cm_plain` for CPU tensors; any other device raises.
+- `bcjr_posterior_cm` (csrc/bcjr.cu) ports
+  dectnrp_tpu/phy/fec/bcjr_pallas.py::_pallas_bcjr_call: float32 metrics,
+  renormalized every step (subtract the max), as in
+  turbo_jax._bcjr_posterior_windowed; the max-difference posterior cancels
+  the offset either way.
+- `bcjr_posterior_cm_bf16` (csrc/bcjr_bf16.cu) ports `_pallas_bcjr_call_bf16`:
+  bf16 state metrics, branch metrics computed in float32 and rounded to
+  bf16, renormalized every 4 steps by subtracting state 0, the posterior's
+  max-difference taken in float32.
+
+`turbo.turbo_decode(_early)` reach them through `impl="cuda"` /
+`impl="cuda_bf16"` (see `turbo._resolve_bcjr`; `"auto"` picks the float32
+kernel for windowed decodes on the card). Each wrapper launches its kernel
+for CUDA tensors and runs its plain twin for CPU tensors; any other device
+raises.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from ..plan import device_tables
 NEG = -1e30
 
 launches = 0          # kernel launches made by bcjr_posterior_cm
+launches_bf16 = 0     # kernel launches made by bcjr_posterior_cm_bf16
 
 
 def trellis_tables():
@@ -93,6 +103,103 @@ def bcjr_windowed_cm_plain(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
     return metric[..., 1].amax(-1) - metric[..., 0].amax(-1)
 
 
+def bcjr_windowed_cm_bf16_plain(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
+                                Lw: int = 128, D: int = 32) -> torch.Tensor:
+    """Plain PyTorch twin of the bf16 kernel: [K+3, B] float32 x2 ->
+    posterior float32 [K, B], step for step as
+    bcjr_pallas._pallas_bcjr_call_bf16 (its sublane packing of two
+    codeblock groups aside: here one codeblock per column).
+
+    - branch metrics 0.5 * (sgn_c * Lsys + sgn_z * Lp) in float32, rounded to
+      bf16; the alpha side indexes them by the destination's two incoming
+      edges, the beta side by (state, input bit) (the parity-sign form);
+    - alpha and beta updates: max of two bf16 sums, kept where the step lies
+      inside [0, K+3); the alpha at window step t >= D is stored before its
+      update;
+    - after every group of 4 steps, in both passes, the state-0 metric is
+      subtracted; the beta groups run t = T-4-4i+k for k = 3..0, T = Lw + 2D;
+    - posterior ((alpha + gamma) + beta) in bf16, cast to float32, max over
+      the 8 states per input bit, hi - lo in float32.
+
+    Every bf16 op rounds once (torch computes in float32 and rounds to
+    nearest even, which for one add of two bf16 values is the correctly
+    rounded bf16 sum), so the kernel's __hadd2 / __hmax2 match it bit for
+    bit. The TPU kernel's last D beta steps (t < D) update a beta that no
+    output reads; the twin and the kernel stop at t = D.
+    """
+    T = Lw + 2 * D
+    if T % 4 or (D + Lw) % 4:
+        raise ValueError(f"bf16 BCJR: Lw + 2D = {T} and D + Lw = {D + Lw} "
+                         "must be multiples of 4")
+    tb = device_tables(trellis_tables, (), Lsys.device)
+    nxt, pred_s, pred_c = tb["nxt"], tb["pred_s"], tb["pred_c"]
+    sgn_c, sgn_z = tb["sgn_c"], tb["sgn_z"]
+    Kt, B = Lsys.shape
+    W = -(-Kt // Lw)
+    dev, bf = Lsys.device, torch.bfloat16
+    w_idx = torch.arange(W, device=dev)
+
+    def gamma_at(pos):                     # pos [W] -> bf16 [W, B, 8, 2]
+        p = pos.clamp(0, Kt - 1)
+        return (0.5 * (Lsys[p][..., None, None] * sgn_c
+                       + Lp[p][..., None, None] * sgn_z)).to(bf)
+
+    def renorm(x):
+        return x - x[..., :1]
+
+    zero_state = torch.full((8,), NEG, device=dev).to(bf)
+    zero_state[0] = 0.0
+    uniform = torch.zeros((8,), dtype=bf, device=dev)
+
+    a = torch.where((w_idx == 0)[:, None], zero_state, uniform)
+    a = a[:, None, :].expand(W, B, 8)
+    alphas = []
+    for t in range(D + Lw):
+        pos = w_idx * Lw - D + t
+        valid = ((pos >= 0) & (pos < Kt))[:, None, None]
+        if t >= D:
+            alphas.append(a)
+        g = gamma_at(pos)[..., pred_s, pred_c]
+        a = torch.where(valid, (a[..., pred_s] + g).amax(-1), a)
+        if t % 4 == 3:
+            a = renorm(a)
+
+    reaches_end = (w_idx + 1) * Lw + D >= Kt
+    b = torch.where(reaches_end[:, None], zero_state, uniform)
+    b = b[:, None, :].expand(W, B, 8)
+    betas = [None] * Lw                   # betas[k] = beta_{w*Lw+k+1}
+    for t in range(T - 1, D - 1, -1):
+        pos = w_idx * Lw - D + t
+        valid = ((pos >= 0) & (pos < Kt))[:, None, None]
+        if t < D + Lw:
+            betas[t - D] = b
+        b = torch.where(valid, (b[..., nxt] + gamma_at(pos)).amax(-1), b)
+        if t % 4 == 0:
+            b = renorm(b)
+
+    a_k = torch.stack(alphas, 1).reshape(W * Lw, B, 8)[:K]
+    b_k1 = torch.stack(betas, 1).reshape(W * Lw, B, 8)[:K]
+    g_k = (0.5 * (Lsys[:K, :, None, None] * sgn_c
+                  + Lp[:K, :, None, None] * sgn_z)).to(bf)        # [K,B,8,2]
+    metric = ((a_k[..., None] + g_k) + b_k1[..., nxt]).float()
+    return metric[..., 1].amax(-1) - metric[..., 0].amax(-1)
+
+
+def _check_inputs(name: str, Lsys: torch.Tensor, Lp: torch.Tensor, K: int):
+    """The kernels take contiguous float32 [K+3, B] pairs on one card."""
+    if Lsys.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {Lsys.device}")
+    Kt, B = Lsys.shape
+    if Kt != K + 3 or Lp.shape != Lsys.shape:
+        raise ValueError(f"{name}: shapes {tuple(Lsys.shape)}, "
+                         f"{tuple(Lp.shape)} for K={K}")
+    for x in (Lsys, Lp):
+        if x.dtype != torch.float32 or not x.is_contiguous() \
+                or x.device != Lsys.device:
+            raise ValueError(f"{name}: inputs must be contiguous float32 on "
+                             "one device")
+
+
 def bcjr_posterior_cm(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
                       Lw: int = 128, D: int = 32) -> torch.Tensor:
     """Column-major windowed BCJR: Lsys, Lp float32 [K+3, B] -> [K, B].
@@ -101,25 +208,43 @@ def bcjr_posterior_cm(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
     """
     if Lsys.device.type == "cpu":
         return bcjr_windowed_cm_plain(Lsys, Lp, K, Lw, D)
-    if Lsys.device.type != "cuda":
-        raise ValueError(f"bcjr_posterior_cm: unsupported device {Lsys.device}")
-    Kt, B = Lsys.shape
-    if Kt != K + 3 or Lp.shape != Lsys.shape:
-        raise ValueError(f"bcjr_posterior_cm: shapes {tuple(Lsys.shape)}, "
-                         f"{tuple(Lp.shape)} for K={K}")
-    for x in (Lsys, Lp):
-        if x.dtype != torch.float32 or not x.is_contiguous() \
-                or x.device != Lsys.device:
-            raise ValueError("bcjr_posterior_cm: inputs must be contiguous "
-                             "float32 on one device")
+    _check_inputs("bcjr_posterior_cm", Lsys, Lp, K)
     from ... import kernels
 
     lib = kernels.load()
-    post = torch.empty((K, B), dtype=torch.float32, device=Lsys.device)
+    post = torch.empty((K, Lsys.shape[1]), dtype=torch.float32,
+                       device=Lsys.device)
     err = lib.bcjr_posterior_cm(Lsys.data_ptr(), Lp.data_ptr(),
-                                post.data_ptr(), K, B, Lw, D,
+                                post.data_ptr(), K, Lsys.shape[1], Lw, D,
                                 kernels.stream_ptr(Lsys.device))
     kernels.check(err, "bcjr_posterior_cm")
     global launches
     launches += 1
+    return post
+
+
+def bcjr_posterior_cm_bf16(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
+                           Lw: int = 128, D: int = 32) -> torch.Tensor:
+    """Column-major windowed BCJR with bf16 state metrics: Lsys, Lp float32
+    [K+3, B] -> float32 [K, B].
+
+    CUDA tensors launch the bf16 kernel; CPU tensors run the plain twin.
+    """
+    if Lsys.device.type == "cpu":
+        return bcjr_windowed_cm_bf16_plain(Lsys, Lp, K, Lw, D)
+    _check_inputs("bcjr_posterior_cm_bf16", Lsys, Lp, K)
+    if (Lw + 2 * D) % 4 or (D + Lw) % 4:
+        raise ValueError("bcjr_posterior_cm_bf16: Lw + 2D and D + Lw must be "
+                         "multiples of 4")
+    from ... import kernels
+
+    lib = kernels.load()
+    post = torch.empty((K, Lsys.shape[1]), dtype=torch.float32,
+                       device=Lsys.device)
+    err = lib.bcjr_posterior_cm_bf16(Lsys.data_ptr(), Lp.data_ptr(),
+                                     post.data_ptr(), K, Lsys.shape[1], Lw, D,
+                                     kernels.stream_ptr(Lsys.device))
+    kernels.check(err, "bcjr_posterior_cm_bf16")
+    global launches_bf16
+    launches_bf16 += 1
     return post

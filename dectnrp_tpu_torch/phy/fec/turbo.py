@@ -4,24 +4,29 @@ Port of dectnrp_tpu/phy/fec/turbo_jax.py (reference: srsRAN turbo used by
 lib/src/phy/fec/pdc_enc.cpp / pcc_enc.cpp). Codeblocks are the leading batch
 dimension; all index maps (QPP interleaver, tail layout) are static per K.
 
-Decoder engines, chosen by K exactly as `turbo_jax._resolve_bcjr` does:
-  * K >= 512: sliding-window max-log-MAP (Lw=128, D=32) in the column-major
-    [K+3, B] layout of the CUDA kernel (`bcjr_cuda.bcjr_posterior_cm`: the
-    kernel on the card, its plain twin on CPU);
-  * K < 512 (the PCC, K = 56 / 96): the unwindowed BCJR below, plain torch.
+The decoder's BCJR engine is picked by `_resolve_bcjr(K, window, impl,
+device)`, as `turbo_jax._resolve_bcjr` picks it:
+  * window: None means 128-step windows (D = 32 acquisition steps) for
+    K >= 512 and the unwindowed BCJR below for K < 512 (the PCC, K = 56/96);
+  * impl "plain" (JAX "xla"): row-major plain torch, windowed or not;
+  * impl "cuda" / "cuda_bf16" (JAX "pallas" / "pallas_bf16"): column-major
+    [K+3, B] through `bcjr_cuda.bcjr_posterior_cm` / `_cm_bf16` (the kernel on
+    the card, its plain twin on CPU tensors); windowed decodes only;
+  * impl "auto": "cuda" for a windowed decode of tensors on the card,
+    "plain" otherwise.
 
 LLR convention: L = log P(b=1)/P(b=0); positive means bit 1.
 """
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
 
 from ..plan import device_tables
-from .bcjr_cuda import (NEG, bcjr_posterior_cm, bcjr_windowed_cm_plain,
-                        trellis_tables)
+from .bcjr_cuda import (NEG, bcjr_posterior_cm, bcjr_posterior_cm_bf16,
+                        bcjr_windowed_cm_plain, trellis_tables)
 from .qpp import deinterleaver, interleaver
 
 # ---------------------------------------------------------------- trellis LUTs
@@ -154,7 +159,8 @@ def _bcjr_posterior(Ls, Lp, La, K):
 
     Ls, Lp: [B, K+3] channel LLRs incl. termination steps; La: [B, K]
     a-priori. Returns posterior LLR [B, K] (turbo_jax._bcjr_posterior).
-    Plain torch: the PCC (K < 512) runs here on every device.
+    Plain torch: unwindowed decodes (the PCC, K < 512) run here on every
+    device.
     """
     tb = device_tables(trellis_tables, (), Ls.device)
     nxt, pred_s, pred_c = tb["nxt"], tb["pred_s"], tb["pred_c"]
@@ -223,26 +229,49 @@ def _llr_streams(d_llr: torch.Tensor, K: int):
     return Ls1, Lp1, Ls2, Lp2
 
 
-def _make_iter(d_llr: torch.Tensor, K: int):
-    """Build (one_iter(La1) -> (La1_next, Lpost_deinterleaved), La1_0, kind).
+def _resolve_bcjr(K: int, window: int | None, impl: str, device):
+    """Pick the BCJR engine (turbo_jax._resolve_bcjr's counterpart).
 
-    K >= 512 runs column-major ([K(+3), B], the kernel's layout) through
-    `bcjr_posterior_cm`; K < 512 runs row-major [B, K] through the
-    unwindowed BCJR, as turbo_jax._make_iter's "cm" / "rm" kinds.
+    Returns (kind, bcjr): kind "cm" = column-major fn(Lsys [K+3, B], Lp) ->
+    post [K, B]; kind "rm" = row-major fn(Ls, Lp, La, K) -> post [B, K].
+    """
+    if window is None:
+        window = 128 if K >= 512 else 0
+    if impl not in ("auto", "plain", "cuda", "cuda_bf16"):
+        raise ValueError(f"turbo decode: unknown impl {impl!r}")
+    if impl == "auto":
+        impl = "cuda" if window and torch.device(device).type == "cuda" else "plain"
+    if impl == "plain":
+        if window:
+            return "rm", partial(_bcjr_posterior_windowed, Lw=window, D=32)
+        return "rm", _bcjr_posterior
+    if not window:
+        raise ValueError(f"turbo decode: impl {impl!r} needs windowed mode "
+                         "(window > 0)")
+    fn = bcjr_posterior_cm_bf16 if impl == "cuda_bf16" else bcjr_posterior_cm
+    return "cm", partial(fn, K=K, Lw=window, D=32)
+
+
+def _make_iter(d_llr: torch.Tensor, K: int, kind: str, bcjr):
+    """Build (one_iter(La1) -> (La1_next, Lpost_deinterleaved), La1_0).
+
+    kind "cm": all state is column-major [K(+3), B], the kernels' layout, so
+    iterations run transpose-free; the caller transposes the final
+    posterior once. kind "rm": row-major [B, K].
     """
     pi, inv = device_tables(_qpp_tables, (K,), d_llr.device)[:2]
     Ls1, Lp1, Ls2, Lp2 = _llr_streams(d_llr, K)
 
-    if K < 512:
+    if kind == "rm":
         def one_iter(La1):
-            Lpost1 = _bcjr_posterior(Ls1, Lp1, La1, K)
+            Lpost1 = bcjr(Ls1, Lp1, La1, K)
             Le1 = Lpost1 - Ls1[:, :K] - La1
             La2 = Le1[:, pi]
-            Lpost2 = _bcjr_posterior(Ls2, Lp2, La2, K)
+            Lpost2 = bcjr(Ls2, Lp2, La2, K)
             Le2 = Lpost2 - Ls2[:, :K] - La2
             return Le2[:, inv], Lpost2[:, inv]
 
-        return one_iter, torch.zeros_like(d_llr[:, 0, :K]), "rm"
+        return one_iter, torch.zeros_like(d_llr[:, 0, :K])
 
     Ls1c, Lp1c = Ls1.T.float().contiguous(), Lp1.T.float().contiguous()
     Ls2c, Lp2c = Ls2.T.float().contiguous(), Lp2.T.float().contiguous()
@@ -251,21 +280,26 @@ def _make_iter(d_llr: torch.Tensor, K: int):
         return torch.nn.functional.pad(x, (0, 0, 0, 3))
 
     def one_iter(La1):                                   # La1 [K, B]
-        Lpost1 = bcjr_posterior_cm(Ls1c + pad3(La1), Lp1c, K)
+        Lpost1 = bcjr(Ls1c + pad3(La1), Lp1c)
         Le1 = Lpost1 - Ls1c[:K] - La1
         La2 = Le1[pi]
-        Lpost2 = bcjr_posterior_cm(Ls2c + pad3(La2), Lp2c, K)
+        Lpost2 = bcjr(Ls2c + pad3(La2), Lp2c)
         Le2 = Lpost2 - Ls2c[:K] - La2
         return Le2[inv], Lpost2[inv]
 
     La0 = torch.zeros((K, d_llr.shape[0]), dtype=torch.float32,
                       device=d_llr.device)
-    return one_iter, La0, "cm"
+    return one_iter, La0
 
 
-def turbo_decode(d_llr: torch.Tensor, K: int, n_iter: int = 8):
-    """Decode LLRs [B, 3, K+4] -> (hard bits uint8 [B, K], posterior [B, K])."""
-    one_iter, La1, kind = _make_iter(d_llr, K)
+def turbo_decode(d_llr: torch.Tensor, K: int, n_iter: int = 8,
+                 window: int | None = None, impl: str = "auto"):
+    """Decode LLRs [B, 3, K+4] -> (hard bits uint8 [B, K], posterior [B, K]).
+
+    window, impl: the BCJR engine, see `_resolve_bcjr`.
+    """
+    kind, bcjr = _resolve_bcjr(K, window, impl, d_llr.device)
+    one_iter, La1 = _make_iter(d_llr, K, kind, bcjr)
     Lpost = None
     for _ in range(n_iter):
         La1, Lpost = one_iter(La1)
@@ -275,7 +309,8 @@ def turbo_decode(d_llr: torch.Tensor, K: int, n_iter: int = 8):
 
 
 def turbo_decode_early(d_llr: torch.Tensor, crc_m: torch.Tensor, K: int,
-                       n_iter_max: int = 8, n_iter_min: int = 1):
+                       n_iter_max: int = 8, n_iter_min: int = 1,
+                       window: int | None = None, impl: str = "auto"):
     """CRC-gated early-stopping decode (reference pdc_enc.cpp:367-401).
 
     Runs n_iter_min iterations with no CRC check, then iterates while some
@@ -283,10 +318,12 @@ def turbo_decode_early(d_llr: torch.Tensor, crc_m: torch.Tensor, K: int,
     crc_m [K-L, L] float32) fails and fewer than n_iter_max iterations ran.
     Converged rows freeze their posterior and a-priori. The loop condition
     is read on the host once per iteration (turbo_jax's lax.while_loop).
+    window, impl: the BCJR engine, see `_resolve_bcjr`.
 
     Returns (hard bits [B, K], posterior [B, K], crc_ok [B], n_it int).
     """
-    one_iter, La1, kind = _make_iter(d_llr, K)
+    kind, bcjr = _resolve_bcjr(K, window, impl, d_llr.device)
+    one_iter, La1 = _make_iter(d_llr, K, kind, bcjr)
     Lc = crc_m.shape[1]
     crc_mf = crc_m.to(torch.float32)
     if kind == "cm":

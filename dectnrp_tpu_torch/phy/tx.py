@@ -7,10 +7,10 @@ sequence -> GI, at the native DECT rate.
 The port covers one spatial stream (N_SS = 1): a single transmit stream, or
 N_TS = 2/4/8 transmit streams by Alamouti transmit diversity (JAX
 tx.py:26-42, 108-116), mapped onto the N_TX antennas through the first
-beamforming matrix W of the codebook; redundancy version 0 and no TX
-windowing. Spatial multiplexing (N_SS > 1), other codebook entries,
-redundancy versions and `window_fraction` raise NotImplementedError (queued
-in ROADMAP.md).
+beamforming matrix W of the codebook; any redundancy version rv (the PDC
+rate matching's start, for HARQ retransmissions) and no TX windowing.
+Spatial multiplexing (N_SS > 1), other codebook entries and
+`window_fraction` raise NotImplementedError (queued in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -47,10 +47,11 @@ class Tx(torch.nn.Module):
                                       "is not ported yet")
         if window_fraction > 0.0:
             raise NotImplementedError("build_tx: TX windowing is not ported yet")
-        if codebook_idx or rv:
-            raise NotImplementedError("build_tx: only codebook entry 0 and "
-                                      "redundancy version 0 are ported yet")
+        if codebook_idx:
+            raise NotImplementedError("build_tx: only codebook entry 0 is "
+                                      "ported yet")
         self.ps, self.network_id, self.plcf_type = ps, network_id, plcf_type
+        self.rv = rv
         q = ps.numerology
         self.N, self.S, self.cp = q.N_b_DFT, ps.N_PACKET_symb, q.N_b_CP
         self.N_TX, self.N_TS = ps.tm_mode.N_TX, ps.tm_mode.N_TS
@@ -94,7 +95,7 @@ class Tx(torch.nn.Module):
         e_pcc = pcc_encode(plcf_bits, cl, bf, self.plcf_type)     # [B, 196]
         x_pcc = map_bits(e_pcc, 2)                                # [B, 98]
         e_pdc = pdc_encode(tb_bits, self.plan, self.network_id,
-                           self.plcf_type)                        # [B, G]
+                           self.plcf_type, self.rv)               # [B, G]
         x_pdc = map_bits(e_pdc, ps.mcs.N_bps)
 
         grid = torch.zeros((B, self.N_TS * S * N), dtype=torch.complex64,

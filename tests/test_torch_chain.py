@@ -80,3 +80,29 @@ def test_pdc_encode_decode_match_jax(psdef):
     np.testing.assert_array_equal(tb_t.numpy(), np.asarray(tb_j))
     assert ok_t.numpy()[:2].all() and not ok_t.numpy()[2]
     np.testing.assert_array_equal(tb_t.numpy()[:2], tb[:2])
+
+
+@pytest.mark.parametrize("psdef", [SMALL, TWO_K])
+def test_pdc_decode_d_fixed_iterations_match_jax(psdef):
+    """pdc_decode_d(early_stop=False): a fixed number of turbo iterations,
+    then the same CRC checks, as the JAX function's branch."""
+    from dectnrp_tpu.phy.fec import chain as J
+    from dectnrp_tpu_torch.phy.fec import chain as T
+
+    ps = get_packet_sizes(psdef)
+    key = (ps.N_TB_bits, ps.G, ps.mcs.N_bps, psdef.Z)
+    pj, pt = J.PdcPlan.get(*key), T.PdcPlan.get(*key)
+    rng = np.random.default_rng(psdef.b + 10)
+    B = 3
+    tb = rng.integers(0, 2, (B, ps.N_TB_bits)).astype(np.uint8)
+    e = np.asarray(J.pdc_encode(jnp.asarray(tb), pj, NID, 1))
+    llr = _noisy(e, rng, 0.55)
+    llr[1] = _noisy(e[1], rng, 2.5)           # one undecodable row
+    d_j = J.pdc_dematch(jnp.asarray(llr), pj, NID, 1)
+    d_t = T.pdc_dematch(torch.as_tensor(llr), pt, NID, 1)
+    tb_j, ok_j = J.pdc_decode_d(d_j, pj, 3, early_stop=False)
+    tb_t, ok_t = T.pdc_decode_d(d_t, pt, 3, early_stop=False)
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
+    np.testing.assert_array_equal(tb_t.numpy(), np.asarray(tb_j))
+    assert ok_t.numpy()[[0, 2]].all() and not ok_t.numpy()[1]
+    np.testing.assert_array_equal(tb_t.numpy()[[0, 2]], tb[[0, 2]])

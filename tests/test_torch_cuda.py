@@ -46,6 +46,63 @@ def test_bcjr_wrapper_rejects_bad_input(dev):
         bcjr_cuda.bcjr_posterior_cm(x, x, 600)
 
 
+@pytest.mark.parametrize("K,B", [(512, 3), (1056, 2), (6016, 64), (6080, 40)])
+def test_bcjr_bf16_kernel_matches_plain(dev, K, B):
+    """The bf16 kernel rounds as its twin does: bit for bit."""
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+
+    g = torch.Generator(device=dev).manual_seed(K + 1)
+    Lsys = torch.randn((K + 3, B), generator=g, device=dev) * 3
+    Lp = torch.randn((K + 3, B), generator=g, device=dev) * 3
+    n0 = bcjr_cuda.launches_bf16
+    got = bcjr_cuda.bcjr_posterior_cm_bf16(Lsys, Lp, K)
+    assert bcjr_cuda.launches_bf16 == n0 + 1
+    want = bcjr_cuda.bcjr_windowed_cm_bf16_plain(Lsys, Lp, K)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def test_bcjr_bf16_wrapper_rejects_bad_input(dev):
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+
+    x = torch.zeros((515, 4), device=dev)
+    n0 = bcjr_cuda.launches_bf16
+    with pytest.raises(ValueError):
+        bcjr_cuda.bcjr_posterior_cm_bf16(x.T.contiguous().T, x, 512)
+    with pytest.raises(ValueError):
+        bcjr_cuda.bcjr_posterior_cm_bf16(x.double(), x.double(), 512)
+    with pytest.raises(ValueError):
+        bcjr_cuda.bcjr_posterior_cm_bf16(x, x, 600)
+    with pytest.raises(ValueError):
+        bcjr_cuda.bcjr_posterior_cm_bf16(x, x, 512, Lw=126)
+    assert bcjr_cuda.launches_bf16 == n0
+
+
+def test_turbo_decode_early_bf16_round_trip(dev):
+    """CRC-carrying codeblocks through turbo_decode_early(impl="cuda_bf16")
+    at sigma 0.8 return the sent bits, as impl="cuda" does."""
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.chain import _crc_device
+    from dectnrp_tpu_torch.phy.fec.crc import POLY_CRC24B, crc_matrix
+    from dectnrp_tpu_torch.phy.fec.turbo import turbo_decode_early, turbo_encode
+
+    K, B, sigma = 2560, 32, 0.8
+    g = torch.Generator(device=dev).manual_seed(3)
+    m = torch.as_tensor(crc_matrix(K - 24, POLY_CRC24B).astype(np.float32),
+                        device=dev)
+    pay = torch.randint(0, 2, (B, K - 24), generator=g, device=dev,
+                        dtype=torch.uint8)
+    c = torch.cat([pay, _crc_device(pay, m)], 1)
+    d = turbo_encode(c, K).float()
+    llr = (2 * d - 1 + sigma * torch.randn(d.shape, generator=g, device=dev)
+           ) * (2 / sigma ** 2)
+    n0 = bcjr_cuda.launches_bf16
+    for impl in ("cuda_bf16", "cuda"):
+        bits, _, ok, _ = turbo_decode_early(llr, m, K, n_iter_max=8,
+                                            n_iter_min=2, impl=impl)
+        assert torch.equal(bits, c) and bool(ok.all()), impl
+    assert bcjr_cuda.launches_bf16 >= n0 + 4
+
+
 @pytest.mark.parametrize("u,b,R", [(1, 1, 1), (1, 2, 2), (1, 8, 1), (1, 16, 1),
                                    (8, 16, 2)])
 def test_sync_kernel_matches_plain(dev, u, b, R):

@@ -223,7 +223,7 @@ def test_aligned_rx_matches_jax(tm):
     ("rx", {"est_cfo": False}),
     ("rx", {"genie": True}),
     ("tx", {"codebook_idx": 3}),
-    ("tx", {"rv": 2}),
+    ("tx", {"codebook_idx": 1, "rv": 2}),
     ("tx", {"window_fraction": 0.1}),
     ("rx", {"tm": 2}),      # N_SS = 2: MMSE / spatial multiplexing
     ("tx", {"tm": 2}),
@@ -239,6 +239,30 @@ def test_unported_options_raise(builder, kw):
     tm = kw.pop("tm", 0)
     with pytest.raises(NotImplementedError):
         build(TPacketSizesDef(1, 2, 0, 2, tm, 3, 6144), NID, 1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("tm,rv", [(0, 2), (5, 3)])
+def test_tx_redundancy_version_matches_jax(tm, rv):
+    """build_tx(rv > 0), the HARQ retransmissions' packets, against JAX's."""
+    from dectnrp_tpu.phy.tx import build_tx
+    from dectnrp_tpu_torch.phy.tx import build_tx as t_build_tx
+
+    psdef = PacketSizesDef(*ALIGNED[tm])
+    ps = get_packet_sizes(psdef)
+    B = 2
+    rng = np.random.default_rng(20 + rv)
+    plcf = rng.integers(0, 2, (B, 40)).astype(np.uint8)
+    tb = rng.integers(0, 2, (B, ps.N_TB_bits)).astype(np.uint8)
+    fl = np.zeros((B,), bool)
+    iq_j = np.asarray(build_tx(psdef, NID, 1, rv=rv)(
+        jnp.asarray(plcf), jnp.asarray(tb), jnp.asarray(fl), jnp.asarray(fl)))
+    iq_t = t_build_tx(TPacketSizesDef(*ALIGNED[tm]), NID, 1, rv=rv, device="cpu")(
+        torch.as_tensor(plcf), torch.as_tensor(tb), torch.as_tensor(fl),
+        torch.as_tensor(fl)).numpy()
+    np.testing.assert_allclose(iq_t, iq_j, rtol=1e-4, atol=1e-5)
+    iq_0 = np.asarray(build_tx(psdef, NID, 1)(
+        jnp.asarray(plcf), jnp.asarray(tb), jnp.asarray(fl), jnp.asarray(fl)))
+    assert not np.allclose(iq_t, iq_0, atol=1e-3)    # rv moved the PDC bits
 
 
 def test_builders_default_to_the_card():

@@ -31,7 +31,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 COPIES = sorted(f"sections/part3/{p.name}" for p in
                 (ROOT / "dectnrp_tpu_torch/sections/part3").glob("*.py")) + [
     "phy/packet_config.py", "phy/chestim.py", "phy/filters.py",
-    "phy/fec/qpp.py", "phy/fec/crc.py", "phy/fec/rate_match.py"]
+    "phy/fec/qpp.py", "phy/fec/crc.py", "phy/fec/rate_match.py",
+    "phy/fec/turbo_np.py"]
 # the resampler's ratios: get_resampler_fraction's set and the inverses
 RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),
           (9, 10), (27, 40), (9, 20), (27, 80), (1, 2)]
@@ -249,8 +250,9 @@ def test_tables_to_device_keeps_values():
 
 def test_port_runs_without_jax():
     """A fresh interpreter imports the port, runs the small flagship- and
-    wall-shaped steps end to end and loads neither jax (the card's machine
-    has none) nor the JAX package."""
+    wall-shaped steps and one point of the FEC oracle (HARQ combining) end
+    to end and loads neither jax (the card's machine has none) nor the JAX
+    package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, torch
@@ -282,6 +284,14 @@ def test_port_runs_without_jax():
         offs = torch.as_tensor(packet_offsets(rng, 2, 1, step.T, step.n_pkt))
         ok, det, tf = step(plcf, tb, offs, torch.Generator().manual_seed(1))
         assert bool(ok.all()) and bool(det.all()), (ok, det)
+        # the FEC oracle through its HARQ process, one point at 20 dB
+        from dectnrp_tpu_torch import fec_awgn
+        from dectnrp_tpu_torch.phy import harq  # noqa: F401
+        st = fec_awgn.build_fec_awgn_step(fec_awgn.fec_psdef(1), 1, device="cpu")
+        tb = torch.as_tensor(rng.integers(0, 2, (2, st.ps.N_TB_bits)),
+                             dtype=torch.uint8)
+        oks, errs, _ = st(tb, 20.0, torch.Generator().manual_seed(2))
+        assert bool(oks.all()) and int(errs) == 0, (oks, errs)
         assert "jax" not in sys.modules, "the port loaded jax"
         assert "dectnrp_tpu" not in sys.modules, "the port loaded the JAX package"
         print("JAX_FREE_OK")

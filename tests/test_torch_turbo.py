@@ -104,3 +104,64 @@ def test_turbo_decode_early_matches_jax(K, B, sigma):
     b4j, _ = turbo_decode(jnp.asarray(llr), K, 4)
     b4t, _ = T.turbo_decode(torch.as_tensor(llr), K, 4)
     np.testing.assert_array_equal(b4t.numpy(), np.asarray(b4j))
+
+
+@pytest.mark.parametrize("window,impl_t,impl_j", [(0, "plain", "xla"),
+                                                  (64, "plain", "xla"),
+                                                  (None, "plain", "xla"),
+                                                  (64, "cuda", "xla")])
+def test_turbo_entry_window_impl_matches_jax(window, impl_t, impl_j):
+    """The decoder's full entry point: an unwindowed decode at K = 1056, a
+    64-step window, and "plain" against JAX's "xla", at the tolerances of
+    test_turbo_decode_early_matches_jax (the kernel impl runs its plain
+    twin on CPU tensors)."""
+    from dectnrp_tpu.phy.fec.crc import POLY_CRC24A, crc_matrix
+    from dectnrp_tpu.phy.fec.turbo_jax import turbo_decode, turbo_decode_early
+    from dectnrp_tpu_torch.phy.fec import turbo as T
+
+    K, B = 1056, 3
+    c, llr = _coded_llrs(K, B, seed=7, sigma=0.85)
+    m = crc_matrix(K - 24, POLY_CRC24A)
+    bj, _, okj, itj = turbo_decode_early(jnp.asarray(llr), jnp.asarray(m), K,
+                                         n_iter_max=4, n_iter_min=2,
+                                         window=window, impl=impl_j)
+    bt, pt, okt, itt = T.turbo_decode_early(torch.as_tensor(llr),
+                                            torch.as_tensor(m), K,
+                                            n_iter_max=4, n_iter_min=2,
+                                            window=window, impl=impl_t)
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert itt == int(itj) and pt.shape == (B, K)
+    b3j, p3j = turbo_decode(jnp.asarray(llr), K, 3, window=window, impl=impl_j)
+    b3t, p3t = T.turbo_decode(torch.as_tensor(llr), K, 3, window=window,
+                              impl=impl_t)
+    np.testing.assert_array_equal(b3t.numpy(), np.asarray(b3j))
+    np.testing.assert_allclose(p3t.numpy(), np.asarray(p3j), rtol=1e-4, atol=1e-2)
+
+
+def test_resolve_bcjr():
+    """window=None: 128-step windows for K >= 512, none below; "auto" takes
+    the float32 kernel for windowed decodes on the card and plain torch
+    otherwise; the kernel impls need a window, as JAX asserts."""
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec import turbo as T
+
+    kind, fn = T._resolve_bcjr(6016, None, "auto", torch.device("cuda"))
+    assert kind == "cm" and fn.func is bcjr_cuda.bcjr_posterior_cm
+    assert fn.keywords == {"K": 6016, "Lw": 128, "D": 32}
+    kind, fn = T._resolve_bcjr(6016, None, "auto", "cpu")
+    assert kind == "rm" and fn.func is T._bcjr_posterior_windowed
+    assert T._resolve_bcjr(56, None, "auto", "cuda") == ("rm", T._bcjr_posterior)
+    kind, fn = T._resolve_bcjr(848, 64, "cuda_bf16", "cpu")
+    assert kind == "cm" and fn.func is bcjr_cuda.bcjr_posterior_cm_bf16
+    assert fn.keywords["Lw"] == 64
+    for impl in ("cuda", "cuda_bf16"):
+        with pytest.raises(ValueError):
+            T._resolve_bcjr(1056, 0, impl, "cpu")
+        with pytest.raises(ValueError):
+            T._resolve_bcjr(96, None, impl, "cuda")
+    with pytest.raises(ValueError):
+        T._resolve_bcjr(1056, None, "pallas", "cpu")
+    llr = torch.zeros((1, 3, 1060))
+    with pytest.raises(ValueError):
+        T.turbo_decode(llr, 1056, 1, window=0, impl="cuda")
