@@ -22,9 +22,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
   2. build: nvcc-builds the kernels of dectnrp_tpu_torch/csrc for sm_90a,
      one nvcc per source, all at once;
   3. BCJR kernel vs its plain twin at every K of both paths, on 64
-     codeblocks and on as many as a step decodes in one call, at rtol 1e-4,
-     atol 1e-3; and a turbo_decode_early round trip of 64 CRC-carrying
-     codeblocks per K that must return the sent bits;
+     codeblocks, on as many as a step decodes in one call and on the
+     oracle's ragged 50, at rtol 1e-4, atol 1e-3 (the report
+     states the measured max |err|, 0 when bit-identical); the kernel run
+     as ONE window (Lw = K+3, D = 0), as every unwindowed decode on the
+     card calls it: K = 56 and 96 (the PCC) x 64 rows (a flagship RX call),
+     x 16 (wall), x 128, x 50 and x 3 (ragged), and K = 424 x 50 (the
+     oracle's MCS 0), each equal bit for bit to its plain twin AND to the
+     unwindowed turbo._bcjr_posterior on the same card tensors; and a
+     turbo_decode_early round trip of 64 CRC-carrying codeblocks per K that
+     must return the sent bits;
   3b. bf16 BCJR kernel vs its plain twin, bit for bit (max |err| 0), at
      K = 1056/5632/6016/6080 x 64, at the flagship's K = 6016 x 832 and
      6080 x 192 and at K = 5632 x 50; turbo_decode(impl="cuda_bf16") at
@@ -42,7 +49,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      flagship-shaped (u=1 b=1 SISO) and wall-shaped (u=1 b=1 N_TX = 4 with
      the resampler); then the flagship and the wall step, each with
      decode_ok >= 0.95, detected >= 0.95 and its kernels launched in the
-     step (the wall: polyphase exactly twice), bcjr_bf16 in neither;
+     step: the BCJR as one window exactly packets x 2 PLCF types x 2
+     constituent decoders x the RX's n_iter times (the blind PCC decode),
+     windowed at least 2 x 2 times per codeblock size (the PDC decode's two
+     iterations before its first CRC check) and at most 2 x n_iter times,
+     sync once, polyphase twice on the wall and never on the flagship,
+     bcjr_bf16 in neither;
   6b. the FEC oracle path: PER_retx0 <= 0.1 at w + 2, PER_retx3 <= 0.1 at
      w - 4, PER never rising from one retransmission to the next; the
      first-transmission softbuffers decoded by turbo_decode_early with
@@ -54,9 +66,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      per-stage times, and each kernel next to its plain twin, its bound on
      the card and, where one PyTorch call computes the same function, that
      call (conv1d for the polyphase FIR). The BCJR calls (float32 and
-     bf16 at K = 6016 x 832) are timed eagerly;
-     the sync and polyphase calls, tens to hundreds of microseconds, by CUDA
-     events around CUDA-graph replays (no host launch gaps), and eagerly;
+     bf16 at K = 6016 x 832, in turns on the same inputs; the float32
+     kernel also at each alpha checkpoint spacing 1, 2, 4, 8, and as one
+     window at the PCC's and the oracle's shapes beside
+     turbo._bcjr_posterior) and the sync and polyphase calls, tens to
+     hundreds of microseconds, by CUDA events around CUDA-graph replays (no
+     host launch gaps), and eagerly;
   8. torch.profiler (device activity only) over one flagship and one wall
      step: device kernels launched, their busy time and the device's idle
      share under the profiler, the top kernels by time. Details go to
@@ -149,14 +164,16 @@ def bound(nbytes, ops, peak_ops=PEAK_FP32):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def bcjr_work(K, n_cb):
-    """(bytes, ops) of one windowed max-log-MAP call: Lsys and Lp read once,
-    the posterior written once; per trellis step and codeblock 3 ops of
-    branch metrics, 39 forward (16 adds, 8 maxes, renormalization 7 maxes +
-    8 subs), 39 backward, 47 posterior (32 adds, 2 x 7 maxes, 1 sub), and
-    21 for the D = 32 acquisition steps on each side of every Lw = 128
-    window (2 x 42 x 32 / 128)."""
-    return (2 * (K + 3) + K) * n_cb * 4, 149 * (K + 3) * n_cb
+def bcjr_work(K, n_cb, windowed=True):
+    """(bytes, ops) of one max-log-MAP call: Lsys and Lp read once, the
+    posterior written once; per trellis step and codeblock 3 ops of branch
+    metrics, 39 forward (16 adds, 8 maxes, renormalization 7 maxes + 8
+    subs), 39 backward, 47 posterior (32 adds, 2 x 7 maxes, 1 sub), and,
+    when windowed, 21 for the D = 32 acquisition steps on each side of
+    every Lw = 128 window (2 x 42 x 32 / 128); a single window over the
+    whole trellis runs none."""
+    return ((2 * (K + 3) + K) * n_cb * 4,
+            (149 if windowed else 128) * (K + 3) * n_cb)
 
 
 def sync_work(B, R, T, P, n_pat):
@@ -182,21 +199,70 @@ def poly_work(mod, rows):
 def counts():
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
     from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
-    return {"bcjr": bcjr_cuda.launches, "bcjr_bf16": bcjr_cuda.launches_bf16,
+    return {"bcjr": bcjr_cuda.launches,
+            "bcjr_one_window": bcjr_cuda.launches_one_window,
+            "bcjr_bf16": bcjr_cuda.launches_bf16,
             "sync": sync_detect.launches, "polyphase": polyphase.launches}
 
 
 def zero_counts():
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
     from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
-    bcjr_cuda.launches = bcjr_cuda.launches_bf16 = 0
+    bcjr_cuda.launches = bcjr_cuda.launches_one_window = 0
+    bcjr_cuda.launches_bf16 = 0
     sync_detect.launches = polyphase.launches = 0
+
+
+def bcjr_llrs(K, Bc, g, dev):
+    """Random column-major (Lsys with a-priori, Lp) [K+3, Bc] on `dev`."""
+    Lp = torch.randn((K + 3, Bc), generator=g, device=dev) * 3
+    Lsys = torch.randn((K + 3, Bc), generator=g, device=dev) * 3
+    Lsys[:K] += torch.randn((K, Bc), generator=g, device=dev)
+    return Lsys, Lp
+
+
+def phase_bcjr_one_window(dev, report, shapes):
+    """The kernel as one window (Lw = K+3, D = 0) at `shapes` [(K, rows)]:
+    bit-equal to its plain twin and to the unwindowed plain BCJR."""
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior, _resolve_bcjr
+
+    res = {}
+    for K, Bc in shapes:
+        kind, route = _resolve_bcjr(K, None, "auto", dev)
+        require(kind == "cm" and route.func is bcjr_cuda.bcjr_posterior_cm
+                and route.keywords == {"K": K, "Lw": K + 3, "D": 0},
+                f"one-window BCJR K={K}: the decoder does not take the kernel")
+        Lsys, Lp = bcjr_llrs(K, Bc, torch.Generator(device=dev).manual_seed(K + Bc),
+                             dev)
+        n1 = bcjr_cuda.launches_one_window
+        got = route(Lsys, Lp)
+        require(bcjr_cuda.launches_one_window == n1 + 1,
+                f"one-window BCJR K={K} x {Bc}: launch not counted")
+        twin = bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, K + 3, 0)
+        # the row-major unwindowed BCJR; the a-priori is inside Lsys already
+        unw = _bcjr_posterior(Lsys.T.contiguous(), Lp.T.contiguous(),
+                              torch.zeros((Bc, K), device=dev), K).T
+        torch.cuda.synchronize()
+        require(torch.isfinite(got).all(),
+                f"one-window BCJR K={K} x {Bc}: non-finite output")
+        e_twin = (got - twin).abs().max().item()
+        e_unw = (got - unw).abs().max().item()
+        require(torch.equal(got, twin), f"one-window BCJR K={K} x {Bc}: kernel vs "
+                f"plain twin max |err| {e_twin} (must be 0)")
+        require(torch.equal(got, unw), f"one-window BCJR K={K} x {Bc}: kernel vs "
+                f"turbo._bcjr_posterior max |err| {e_unw} (must be 0)")
+        res[f"K{K}_{Bc}rows"] = {"vs_twin": e_twin, "vs_bcjr_posterior": e_unw}
+    report["bcjr_one_window_check"] = res
+    print("bcjr one window (Lw = K+3, D = 0): kernel == plain twin == "
+          "turbo._bcjr_posterior bit for bit at K x rows "
+          + ", ".join(f"{K} x {Bc}" for K, Bc in shapes), flush=True)
 
 
 def phase_bcjr(dev, report, main_shapes):
     """Kernel vs plain twin on 64 codeblocks and at `main_shapes` ({K:
-    codeblocks per call}, as the steps' PDC decodes call it), then a
-    64-codeblock turbo round trip per K."""
+    codeblocks per call}, as the steps' PDC decodes call it) and on the
+    oracle's ragged 50, then a 64-codeblock turbo round trip per K."""
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
     from dectnrp_tpu_torch.phy.fec.chain import _crc_device
     from dectnrp_tpu_torch.phy.fec.crc import POLY_CRC24B, crc_matrix
@@ -207,10 +273,8 @@ def phase_bcjr(dev, report, main_shapes):
     for K, B_main in main_shapes.items():
         g = torch.Generator(device=dev).manual_seed(K)
         res[K] = {}
-        for Bc in (B, B_main):
-            Lp = torch.randn((K + 3, Bc), generator=g, device=dev) * 3
-            Lsys = torch.randn((K + 3, Bc), generator=g, device=dev) * 3
-            Lsys[:K] += torch.randn((K, Bc), generator=g, device=dev)
+        for Bc in (B, B_main, FEC_N):
+            Lsys, Lp = bcjr_llrs(K, Bc, g, dev)
             got = bcjr_cuda.bcjr_posterior_cm(Lsys, Lp, K)
             want = bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K)
             torch.cuda.synchronize()
@@ -238,7 +302,7 @@ def phase_bcjr(dev, report, main_shapes):
         require(bool(ok.all()), f"turbo round trip K={K}: CRC failed")
         res[K]["round_trip_iters"] = n_it
     report["bcjr_check"] = res
-    shapes = ", ".join(f"K={K} x {B}/{Bm}" for K, Bm in main_shapes.items())
+    shapes = ", ".join(f"K={K} x {B}/{Bm}/{FEC_N}" for K, Bm in main_shapes.items())
     iters = "/".join(str(r["round_trip_iters"]) for r in res.values())
     print(f"bcjr: kernel == plain twin at {shapes} codeblocks (max |err| "
           f"{max(errs):.3g}, rtol 1e-4 atol 1e-3); turbo round trip bits exact "
@@ -636,8 +700,9 @@ def main() -> int:
     from dectnrp_tpu_torch.loopback import (FLAGSHIP_PSDEF, WALL_PSDEF, hw_rate,
                                             make_flagship_step, make_wall_step)
     from dectnrp_tpu_torch.phy.fec.bcjr_cuda import (
-        bcjr_posterior_cm, bcjr_posterior_cm_bf16, bcjr_windowed_cm_bf16_plain,
-        bcjr_windowed_cm_plain)
+        bcjr_posterior_cm, bcjr_posterior_cm_bf16,
+        bcjr_windowed_cm_bf16_plain, bcjr_windowed_cm_plain)
+    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior
     from dectnrp_tpu_torch.phy.ops import sync_detect
 
     dev = torch.device("cuda", 0)
@@ -655,11 +720,18 @@ def main() -> int:
     report["cuda"] = torch.version.cuda
 
     # ---- 2. build
-    kernels.load()
+    lib = kernels.load()
     report["build_s"] = kernels.build_seconds
     report["ptxas"] = kernels.build_log
+    # blocks of the float32 BCJR an SM holds at a time, at the windowed and
+    # the one-window PCC shapes (the occupancy calculator's answer)
+    report["bcjr_blocks_per_sm"] = {Lw: lib.bcjr_blocks_per_sm(Lw)
+                                    for Lw in (128, 59, 99, 427)}
+    require(min(report["bcjr_blocks_per_sm"].values()) >= 1,
+            f"bcjr occupancy query failed: {report['bcjr_blocks_per_sm']}")
     print(f"build: csrc/*.cu -> sm_90a shared library in "
-          f"{kernels.build_seconds:.1f} s", flush=True)
+          f"{kernels.build_seconds:.1f} s; bcjr blocks per SM by Lw: "
+          f"{report['bcjr_blocks_per_sm']}", flush=True)
 
     # ---- 3. BCJR kernel vs plain twin, turbo round trip
     step = make_flagship_step(FLAGSHIP_PSDEF, n_pkts=N_PKTS, snr_db=SNR_DB)
@@ -669,6 +741,11 @@ def main() -> int:
     wall_shapes = {K: n * B_WALL for K, n in Counter(wall.rxs.rx.plan.cb_K).items()}
     main_shapes = {**flag_shapes, **wall_shapes}
     bcjr_err = phase_bcjr(dev, report, main_shapes)
+    # the blind PCC decode calls the kernel as one window on the B rows of
+    # one packet per stream: K = 56 (PLCF type 1) and 96 (type 2)
+    pcc_shapes = [(K, Bc) for Bc in (B_FLAG, B_WALL) for K in (56, 96)]
+    phase_bcjr_one_window(dev, report, pcc_shapes + [
+        (K, Bc) for K in (56, 96) for Bc in (128, FEC_N, 3)] + [(424, FEC_N)])
     bf16_err = phase_bcjr_bf16(dev, report, flag_shapes)
 
     # ---- 4. sync kernel vs plain twin at the flagship shape, b = 1, the wall
@@ -696,13 +773,21 @@ def main() -> int:
     launches = {"flagship": counted_step(step, B_FLAG, 7, dev, gen, "flagship",
                                          report),
                 "wall": counted_step(wall, B_WALL, 17, dev, gen, "wall", report)}
-    require(launches["flagship"]["bcjr"] > 0 and launches["flagship"]["sync"] > 0,
-            f"flagship: a kernel was not launched ({launches['flagship']})")
-    require(launches["wall"]["polyphase"] == 2 and launches["wall"]["bcjr"] > 0
-            and launches["wall"]["sync"] > 0,
-            f"wall: kernels not launched as expected ({launches['wall']})")
-    require(launches["flagship"]["bcjr_bf16"] == launches["wall"]["bcjr_bf16"] == 0,
-            "flagship/wall: the bf16 BCJR is not on these paths")
+    for name, st, n_poly in (("flagship", step, 0), ("wall", wall, 2)):
+        got, rx = launches[name], st.rxs.rx
+        # blind PCC decode: per packet 2 PLCF types x 2 constituent decoders
+        # x n_iter one-window launches; PDC decode: per packet and codeblock
+        # size 2 launches an iteration, 2 to n_iter iterations (CRC early stop)
+        n_pcc = st.n_pkts * 2 * 2 * rx.n_iter
+        n_k = st.n_pkts * len(set(rx.plan.cb_K))
+        n_pdc = got["bcjr"] - got["bcjr_one_window"]
+        require(got["bcjr_one_window"] == n_pcc
+                and 2 * 2 * n_k <= n_pdc <= 2 * rx.n_iter * n_k
+                and got["sync"] == 1 and got["polyphase"] == n_poly
+                and got["bcjr_bf16"] == 0,
+                f"{name}: kernels not launched as expected ({got}; one-window "
+                f"{n_pcc}, windowed {4 * n_k}..{2 * rx.n_iter * n_k}, sync 1, "
+                f"polyphase {n_poly}, bcjr_bf16 0)")
 
     # ---- 6b. the FEC oracle path, counted
     launches["fec_awgn"] = phase_fec_awgn(dev, card, report)
@@ -740,8 +825,29 @@ def main() -> int:
                 lambda: bcjr_windowed_cm_bf16_plain(Lsys, Lp, Kc), reps=3)
             bf16_ms_2 = cuda_ms(lambda: bcjr_posterior_cm_bf16(Lsys, Lp, Kc))
             f32_ms_2 = cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc))
-    bcjr_ms, bcjr_plain_ms = bcjr_times[(K, flag_shapes[K])]
+            # device times without the wrapper's host gaps, in turns again
+            bcjr_graph = {
+                "bcjr_bf16": graph_ms(lambda: bcjr_posterior_cm_bf16(Lsys, Lp, Kc)),
+                "bcjr": graph_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc)),
+                "bcjr_bf16_again": graph_ms(
+                    lambda: bcjr_posterior_cm_bf16(Lsys, Lp, Kc))}
+    bcjr_eager_ms, bcjr_plain_ms = bcjr_times[(K, flag_shapes[K])]
+    bcjr_ms = bcjr_graph["bcjr"]
     bcjr_bound = bound(*bcjr_work(K, flag_shapes[K]))
+    # the kernel as one window at the shapes the unwindowed decodes call it,
+    # beside the plain unwindowed BCJR on the same inputs
+    one_window = {}
+    for Kc, Bc in (*pcc_shapes, (424, FEC_N)):
+        Lsys, Lp = bcjr_llrs(Kc, Bc, g, dev)
+        Ls_r, Lp_r = Lsys.T.contiguous(), Lp.T.contiguous()
+        La = torch.zeros((Bc, Kc), device=dev)
+        b_ms, b_by = bound(*bcjr_work(Kc, Bc, windowed=False))
+        one_window[f"K{Kc}_{Bc}rows"] = {
+            "ms": graph_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc, Kc + 3, 0)),
+            "eager_ms": cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc, Kc + 3, 0)),
+            "bcjr_posterior_ms": cuda_ms(
+                lambda: _bcjr_posterior(Ls_r, Lp_r, La, Kc), reps=3, warm=1),
+            "bound_ms": b_ms, "bound_by": b_by}
     # the same work counted at the bf16x2 rate (bytes bind either way)
     bf16_bound = bound(*bcjr_work(K, flag_shapes[K]), peak_ops=PEAK_BF16X2)
     s = step.sync
@@ -770,6 +876,8 @@ def main() -> int:
         f"bcjr_bf16_K{K}_{flag_shapes[K]}cb": [bf16_ms, bf16_ms_2],
         f"bcjr_bf16_K{K}_{flag_shapes[K]}cb_plain": bf16_plain_ms,
         f"bcjr_K{K}_{flag_shapes[K]}cb_repeat": f32_ms_2,
+        f"graph_replay_K{K}_{flag_shapes[K]}cb": bcjr_graph,
+        "bcjr_one_window": one_window,
         "sync_flagship": sync_ms, "sync_flagship_plain": sync_plain_ms,
         "sync_flagship_eager": sync_eager_ms,
         "polyphase": poly}
@@ -779,7 +887,15 @@ def main() -> int:
           + f" (bound {bcjr_bound[0]:.4f} ms, {bcjr_bound[1]}); bcjr_bf16 K={K} x "
           f"{flag_shapes[K]} cb {bf16_ms:.3f} / {bf16_ms_2:.3f} ms (float32 "
           f"kernel again {f32_ms_2:.3f} ms) vs plain {bf16_plain_ms:.3f} ms (bound "
-          f"{bf16_bound[0]:.4f} ms, {bf16_bound[1]}); sync sm "
+          f"{bf16_bound[0]:.4f} ms, {bf16_bound[1]}); by graph replay at K={K} x "
+          f"{flag_shapes[K]}, in turns: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in bcjr_graph.items())
+          + "; bcjr as one window, graph replay "
+          "(eager) vs turbo._bcjr_posterior, bound: "
+          + "; ".join(f"{k} {v['ms']:.4f} ms ({v['eager_ms']:.4f}) vs "
+                      f"{v['bcjr_posterior_ms']:.2f} ms, {v['bound_ms'] * 1e3:.3f} us "
+                      f"{v['bound_by']}" for k, v in one_window.items())
+          + "; sync sm "
           f"B={B_FLAG} T={step.T} {sync_ms:.3f} ms (eager {sync_eager_ms:.3f}) vs "
           f"plain {sync_plain_ms:.3f} ms (bound {sync_bound[0]:.4f} ms, "
           f"{sync_bound[1]}); "
@@ -806,9 +922,11 @@ def main() -> int:
          "source": "dectnrp_tpu_torch/csrc/bcjr.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:87",
          "launches": total("bcjr"), "launches_by_path": by_path("bcjr"),
-         "max_abs_err": bcjr_err, "ms": bcjr_ms, "plain_ms": bcjr_plain_ms,
+         "launches_one_window_by_path": by_path("bcjr_one_window"),
+         "max_abs_err": bcjr_err, "ms": bcjr_ms, "eager_ms": bcjr_eager_ms,
+         "plain_ms": bcjr_plain_ms,
          "bound_ms": bcjr_bound[0], "bound_by": bcjr_bound[1],
-         "library_ms": None},
+         "library_ms": None, "one_window": one_window},
         {"name": "bcjr_posterior_cm_bf16", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:187",

@@ -48,6 +48,8 @@ def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bcjr_posterior_cm.argtypes = [p, p, p, i, i, i, i, p]
     lib.bcjr_posterior_cm.restype = i
+    lib.bcjr_blocks_per_sm.argtypes = [i]
+    lib.bcjr_blocks_per_sm.restype = i
     lib.bcjr_posterior_cm_bf16.argtypes = [p, p, p, i, i, i, i, p]
     lib.bcjr_posterior_cm_bf16.restype = i
     lib.sync_detect_sm.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, p]

@@ -10,7 +10,16 @@ boundaries uniform; steps outside [0, K+3) leave the metrics unchanged.
   dectnrp_tpu/phy/fec/bcjr_pallas.py::_pallas_bcjr_call: float32 metrics,
   renormalized every step (subtract the max), as in
   turbo_jax._bcjr_posterior_windowed; the max-difference posterior cancels
-  the offset either way.
+  the offset either way. One thread per (codeblock, window) with the 8
+  metrics in registers; bound by the latency of a thread's serial chain of
+  trellis steps, so the LLR rows are fetched 8 steps ahead of the chain, the
+  loops run over valid positions only, and only every 8th alpha
+  vector is kept in shared memory (the backward pass recomputes the others
+  bit for bit), which lets several warps share an SM. Called with ONE
+  window (Lw >= K+3, e.g. Lw = K+3 and D = 0) it is the unwindowed BCJR
+  `turbo._bcjr_posterior`, bit for bit: the decoder sends every unwindowed
+  decode of CUDA tensors this way, the PCC's K = 56 / 96 among them, and
+  `launches_one_window` counts them.
 - `bcjr_posterior_cm_bf16` (csrc/bcjr_bf16.cu) ports `_pallas_bcjr_call_bf16`:
   bf16 state metrics, branch metrics computed in float32 and rounded to
   bf16, renormalized every 4 steps by subtracting state 0, the posterior's
@@ -18,9 +27,10 @@ boundaries uniform; steps outside [0, K+3) leave the metrics unchanged.
 
 `turbo.turbo_decode(_early)` reach them through `impl="cuda"` /
 `impl="cuda_bf16"` (see `turbo._resolve_bcjr`; `"auto"` picks the float32
-kernel for windowed decodes on the card). Each wrapper launches its kernel
-for CUDA tensors and runs its plain twin for CPU tensors; any other device
-raises.
+kernel for every decode on the card that it can carry). Each wrapper
+launches its kernel for CUDA tensors and runs its plain twin for CPU
+tensors; any other device, and a window that does not fit the kernel's
+shared memory, raises.
 """
 from __future__ import annotations
 
@@ -31,8 +41,15 @@ from ..plan import device_tables
 
 NEG = -1e30
 
-launches = 0          # kernel launches made by bcjr_posterior_cm
-launches_bf16 = 0     # kernel launches made by bcjr_posterior_cm_bf16
+launches = 0             # kernel launches made by bcjr_posterior_cm
+launches_one_window = 0  # those of them that ran the trellis as one window
+launches_bf16 = 0        # kernel launches made by bcjr_posterior_cm_bf16
+
+# The float32 kernel keeps every 8th alpha vector of a window (1 KB for a
+# 32-thread block) in the 232,448 bytes of shared memory a block may ask for
+# on sm_90, so the longest window is 227 * 8 = 1816 steps (as one window:
+# K <= 1813).
+LW_MAX = 232448 // (8 * 32 * 4) * 8
 
 
 def trellis_tables():
@@ -204,11 +221,20 @@ def bcjr_posterior_cm(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
                       Lw: int = 128, D: int = 32) -> torch.Tensor:
     """Column-major windowed BCJR: Lsys, Lp float32 [K+3, B] -> [K, B].
 
-    CUDA tensors launch the kernel; CPU tensors run the plain twin.
+    CUDA tensors launch the kernel; CPU tensors run the plain twin. With
+    Lw >= K+3 the trellis is one window: the unwindowed BCJR. A window of
+    more than `LW_MAX` steps does not fit the kernel's shared memory and
+    raises.
     """
     if Lsys.device.type == "cpu":
         return bcjr_windowed_cm_plain(Lsys, Lp, K, Lw, D)
     _check_inputs("bcjr_posterior_cm", Lsys, Lp, K)
+    if Lw <= 0 or D < 0:
+        raise ValueError(f"bcjr_posterior_cm: bad Lw={Lw}, D={D}")
+    if Lw > LW_MAX:
+        raise ValueError(f"bcjr_posterior_cm: a window of Lw={Lw} steps does "
+                         f"not fit the kernel's shared memory (at most "
+                         f"{LW_MAX})")
     from ... import kernels
 
     lib = kernels.load()
@@ -218,8 +244,9 @@ def bcjr_posterior_cm(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
                                 post.data_ptr(), K, Lsys.shape[1], Lw, D,
                                 kernels.stream_ptr(Lsys.device))
     kernels.check(err, "bcjr_posterior_cm")
-    global launches
+    global launches, launches_one_window
     launches += 1
+    launches_one_window += Lw >= K + 3
     return post
 
 

@@ -7,13 +7,19 @@ dimension; all index maps (QPP interleaver, tail layout) are static per K.
 The decoder's BCJR engine is picked by `_resolve_bcjr(K, window, impl,
 device)`, as `turbo_jax._resolve_bcjr` picks it:
   * window: None means 128-step windows (D = 32 acquisition steps) for
-    K >= 512 and the unwindowed BCJR below for K < 512 (the PCC, K = 56/96);
+    K >= 512 and the unwindowed BCJR for K < 512 (the PCC, K = 56/96);
   * impl "plain" (JAX "xla"): row-major plain torch, windowed or not;
   * impl "cuda" / "cuda_bf16" (JAX "pallas" / "pallas_bf16"): column-major
     [K+3, B] through `bcjr_cuda.bcjr_posterior_cm` / `_cm_bf16` (the kernel on
     the card, its plain twin on CPU tensors); windowed decodes only;
-  * impl "auto": "cuda" for a windowed decode of tensors on the card,
-    "plain" otherwise.
+  * impl "auto": "plain" for tensors on the CPU. For tensors on the card the
+    float32 kernel: windowed decodes as "cuda", and unwindowed decodes as
+    ONE window over the whole trellis (Lw = K+3, D = 0: zero-state starts at
+    both ends, which is `_bcjr_posterior` bit for bit). A trellis too long
+    for the kernel's shared memory as one window (K + 3 > `bcjr_cuda.LW_MAX`,
+    reached only by window=0 at K > 1813) raises: the caller asks for
+    impl="plain" or a window. The launch is never guarded: on the card the
+    kernel runs or the call raises.
 
 LLR convention: L = log P(b=1)/P(b=0); positive means bit 1.
 """
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from ..plan import device_tables
-from .bcjr_cuda import (NEG, bcjr_posterior_cm, bcjr_posterior_cm_bf16,
+from .bcjr_cuda import (LW_MAX, NEG, bcjr_posterior_cm, bcjr_posterior_cm_bf16,
                         bcjr_windowed_cm_plain, trellis_tables)
 from .qpp import deinterleaver, interleaver
 
@@ -159,8 +165,9 @@ def _bcjr_posterior(Ls, Lp, La, K):
 
     Ls, Lp: [B, K+3] channel LLRs incl. termination steps; La: [B, K]
     a-priori. Returns posterior LLR [B, K] (turbo_jax._bcjr_posterior).
-    Plain torch: unwindowed decodes (the PCC, K < 512) run here on every
-    device.
+    Plain torch, a Python loop over the trellis: unwindowed decodes of CPU
+    tensors run here (and impl="plain" on every device); on the card
+    `_resolve_bcjr` sends them through the kernel as one window instead.
     """
     tb = device_tables(trellis_tables, (), Ls.device)
     nxt, pred_s, pred_c = tb["nxt"], tb["pred_s"], tb["pred_c"]
@@ -234,13 +241,26 @@ def _resolve_bcjr(K: int, window: int | None, impl: str, device):
 
     Returns (kind, bcjr): kind "cm" = column-major fn(Lsys [K+3, B], Lp) ->
     post [K, B]; kind "rm" = row-major fn(Ls, Lp, La, K) -> post [B, K].
+    "auto" on the card gives the float32 kernel's "cm" route, windowed or
+    as one window (module docstring); the explicit kernel impls keep
+    turbo_jax's contract and refuse an unwindowed decode.
     """
     if window is None:
         window = 128 if K >= 512 else 0
     if impl not in ("auto", "plain", "cuda", "cuda_bf16"):
         raise ValueError(f"turbo decode: unknown impl {impl!r}")
     if impl == "auto":
-        impl = "cuda" if window and torch.device(device).type == "cuda" else "plain"
+        if torch.device(device).type != "cuda":
+            impl = "plain"
+        elif window:
+            impl = "cuda"
+        elif K + 3 <= LW_MAX:
+            return "cm", partial(bcjr_posterior_cm, K=K, Lw=K + 3, D=0)
+        else:
+            raise ValueError(
+                f"turbo decode: the unwindowed trellis of K={K} does not fit "
+                f"the kernel as one window (at most {LW_MAX} steps); pass "
+                "impl=\"plain\" or a window")
     if impl == "plain":
         if window:
             return "rm", partial(_bcjr_posterior_windowed, Lw=window, D=32)

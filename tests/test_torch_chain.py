@@ -106,3 +106,37 @@ def test_pdc_decode_d_fixed_iterations_match_jax(psdef):
     np.testing.assert_array_equal(tb_t.numpy(), np.asarray(tb_j))
     assert ok_t.numpy()[[0, 2]].all() and not ok_t.numpy()[1]
     np.testing.assert_array_equal(tb_t.numpy()[[0, 2]], tb[[0, 2]])
+
+
+@pytest.mark.parametrize("plcf_type", [1, 2])
+def test_pcc_one_window_route_matches_unwindowed(plcf_type):
+    """The PCC's d-LLRs (K = 56 / 96) at an operating SNR through the route
+    the card takes, the float32 BCJR kernel run as one window (on CPU
+    tensors its plain twin: window = K+3, impl "cuda"): the bits and the
+    posterior of the unwindowed decode bit for bit, and the JAX decoder's
+    bits."""
+    from dectnrp_tpu.phy.fec import chain as J
+    from dectnrp_tpu.phy.fec.turbo_jax import turbo_decode as j_decode
+    from dectnrp_tpu_torch.phy.fec import chain as T
+    from dectnrp_tpu_torch.phy.fec.turbo import turbo_decode
+    from dectnrp_tpu_torch.phy.plan import device_tables
+
+    rng = np.random.default_rng(20 + plcf_type)
+    B, n = 8, 40 if plcf_type == 1 else 80
+    K = n + 16
+    a = rng.integers(0, 2, (B, n)).astype(np.uint8)
+    flag = np.zeros(B, bool)
+    e = np.asarray(J.pcc_encode(jnp.asarray(a), jnp.asarray(flag),
+                                jnp.asarray(flag), plcf_type))
+    e_llr = torch.as_tensor(_noisy(e, rng, 0.7))
+    tb = device_tables(T._pcc_tables, (plcf_type,), e_llr.device)
+    d = torch.zeros((B, 3 * (K + 4)))
+    d.index_add_(1, tb["sel"], e_llr * tb["sgn"])
+    d = d.reshape(B, 3, K + 4)
+
+    bits_u, post_u = turbo_decode(d, K, 8)
+    bits_w, post_w = turbo_decode(d, K, 8, window=K + 3, impl="cuda")
+    assert torch.equal(bits_w, bits_u) and torch.equal(post_w, post_u)
+    bits_j, _ = j_decode(jnp.asarray(d.numpy()), K, 8)
+    np.testing.assert_array_equal(bits_w.numpy(), np.asarray(bits_j))
+    assert (bits_w.numpy()[:, :n] == a).all(1).sum() >= B - 1

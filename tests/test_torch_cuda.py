@@ -20,30 +20,80 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("K,B", [(512, 3), (1056, 2), (6016, 64), (6080, 40)])
-def test_bcjr_kernel_matches_plain(dev, K, B):
+# (K, B, Lw, D): windowed shapes, ragged row counts among them (B = 33, 50: a
+# last block of 1 and 18 live threads), and one-window shapes (Lw = K+3, D = 0),
+# up to the longest window the kernel's shared memory holds
+BCJR_SHAPES = [(512, 3, 128, 32), (1056, 2, 128, 32), (6016, 64, 128, 32),
+               (6080, 40, 128, 32), (6016, 33, 128, 32), (5632, 50, 128, 32),
+               (1056, 5, 64, 32), (520, 7, 100, 24),
+               (56, 128, 59, 0), (96, 16, 99, 0), (96, 1, 99, 0),
+               (424, 50, 427, 0), (56, 3, 128, 32), (1056, 9, 1059, 0),
+               (1813, 2, 1816, 0)]
+
+
+@pytest.mark.parametrize("K,B,Lw,D", BCJR_SHAPES)
+def test_bcjr_kernel_matches_plain(dev, K, B, Lw, D):
+    """The kernel equals its plain twin bit for bit, and as one window the
+    unwindowed BCJR."""
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior
 
     g = torch.Generator(device=dev).manual_seed(K)
     Lsys = torch.randn((K + 3, B), generator=g, device=dev) * 3
     Lp = torch.randn((K + 3, B), generator=g, device=dev) * 3
-    n0 = bcjr_cuda.launches
-    got = bcjr_cuda.bcjr_posterior_cm(Lsys, Lp, K)
+    n0, n1 = bcjr_cuda.launches, bcjr_cuda.launches_one_window
+    got = bcjr_cuda.bcjr_posterior_cm(Lsys, Lp, K, Lw, D)
     assert bcjr_cuda.launches == n0 + 1
-    want = bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    assert bcjr_cuda.launches_one_window == n1 + (Lw >= K + 3)
+    want = bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, Lw, D)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    if Lw >= K + 3:
+        La = torch.zeros((B, K), device=dev)
+        unw = _bcjr_posterior(Lsys.T.contiguous(), Lp.T.contiguous(), La, K)
+        assert torch.equal(got, unw.T), (got - unw.T).abs().max().item()
+
+
+@pytest.mark.parametrize("K", [56, 96, 424])
+def test_unwindowed_decode_on_card_takes_the_kernel(dev, K):
+    """turbo_decode of CUDA tensors below 512 bits launches the kernel as one
+    window, twice an iteration, and returns the plain route's bits and
+    posterior."""
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.turbo import turbo_decode, turbo_encode
+
+    g = torch.Generator(device=dev).manual_seed(K)
+    bits = torch.randint(0, 2, (9, K), generator=g, device=dev, dtype=torch.uint8)
+    d = turbo_encode(bits, K).float()
+    llr = (2 * d - 1 + 0.9 * torch.randn(d.shape, generator=g, device=dev)) * 2.5
+    n0, n1 = bcjr_cuda.launches, bcjr_cuda.launches_one_window
+    got_b, got_p = turbo_decode(llr, K, 6)
+    assert bcjr_cuda.launches == n0 + 12
+    assert bcjr_cuda.launches_one_window == n1 + 12
+    want_b, want_p = turbo_decode(llr, K, 6, impl="plain")
+    assert bcjr_cuda.launches == n0 + 12
+    assert torch.equal(got_b, want_b) and torch.equal(got_p, want_p)
 
 
 def test_bcjr_wrapper_rejects_bad_input(dev):
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.turbo import turbo_decode
 
     x = torch.zeros((515, 4), device=dev)
+    n0 = bcjr_cuda.launches
     with pytest.raises(ValueError):
         bcjr_cuda.bcjr_posterior_cm(x.T.contiguous().T, x, 512)
     with pytest.raises(ValueError):
         bcjr_cuda.bcjr_posterior_cm(x.double(), x.double(), 512)
     with pytest.raises(ValueError):
         bcjr_cuda.bcjr_posterior_cm(x, x, 600)
+    # a window whose alpha checkpoints exceed a block's shared memory: the
+    # whole K = 2048 trellis as one window; the wrapper raises, no fallback
+    y = torch.zeros((2051, 4), device=dev)
+    with pytest.raises(ValueError):
+        bcjr_cuda.bcjr_posterior_cm(y, y, 2048, Lw=2051, D=0)
+    with pytest.raises(ValueError):
+        turbo_decode(torch.zeros((4, 3, 2052), device=dev), 2048, 1, window=0)
+    assert bcjr_cuda.launches == n0
 
 
 @pytest.mark.parametrize("K,B", [(512, 3), (1056, 2), (6016, 64), (6080, 40)])

@@ -85,6 +85,35 @@ def test_unwindowed_bcjr_matches_jax(K):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("K,Lw,D", [(56, 59, 0), (96, 99, 0), (424, 427, 0),
+                                    (56, 128, 32), (96, 128, 32),
+                                    (424, 512, 32)])
+def test_one_window_twin_is_unwindowed_bcjr(K, Lw, D):
+    """The kernel's plain twin run as ONE window (Lw = K+3 with D = 0, or a
+    longer window with its D = 32 acquisition steps outside the trellis) is
+    the unwindowed BCJR bit for bit, and within the tolerance of
+    test_unwindowed_bcjr_matches_jax of the JAX function."""
+    from dectnrp_tpu.phy.fec.turbo_jax import _bcjr_posterior
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior as t_bcjr
+
+    rng = np.random.default_rng(K + Lw)
+    B = 5
+    Ls = (rng.standard_normal((B, K + 3)) * 3).astype(np.float32)
+    Lp = (rng.standard_normal((B, K + 3)) * 3).astype(np.float32)
+    La = rng.standard_normal((B, K)).astype(np.float32)
+    want = t_bcjr(torch.as_tensor(Ls), torch.as_tensor(Lp), torch.as_tensor(La), K)
+    Lsys = torch.as_tensor(Ls) + torch.nn.functional.pad(torch.as_tensor(La), (0, 3))
+    n0, n1 = bcjr_cuda.launches, bcjr_cuda.launches_one_window
+    got = bcjr_cuda.bcjr_posterior_cm(Lsys.T.contiguous(),
+                                      torch.as_tensor(Lp).T.contiguous(), K, Lw, D)
+    assert (bcjr_cuda.launches, bcjr_cuda.launches_one_window) == (n0, n1)
+    assert torch.equal(got.T, want)
+    ref = np.asarray(_bcjr_posterior(jnp.asarray(Ls), jnp.asarray(Lp),
+                                     jnp.asarray(La), K))
+    np.testing.assert_allclose(got.T.numpy(), ref, rtol=1e-4, atol=1e-3)
+
+
 @pytest.mark.parametrize("K,B,sigma", [(56, 6, 0.9), (1056, 4, 0.8)])
 def test_turbo_decode_early_matches_jax(K, B, sigma):
     from dectnrp_tpu.phy.fec.crc import POLY_CRC24A, crc_matrix
@@ -141,8 +170,10 @@ def test_turbo_entry_window_impl_matches_jax(window, impl_t, impl_j):
 
 def test_resolve_bcjr():
     """window=None: 128-step windows for K >= 512, none below; "auto" takes
-    the float32 kernel for windowed decodes on the card and plain torch
-    otherwise; the kernel impls need a window, as JAX asserts."""
+    plain torch on the CPU and the float32 kernel on the card, for windowed
+    decodes and, as one window over the whole trellis, for unwindowed
+    decodes (one too long for its shared memory raises, it never turns to
+    plain torch); the explicit kernel impls need a window, as JAX asserts."""
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
     from dectnrp_tpu_torch.phy.fec import turbo as T
 
@@ -151,7 +182,20 @@ def test_resolve_bcjr():
     assert fn.keywords == {"K": 6016, "Lw": 128, "D": 32}
     kind, fn = T._resolve_bcjr(6016, None, "auto", "cpu")
     assert kind == "rm" and fn.func is T._bcjr_posterior_windowed
-    assert T._resolve_bcjr(56, None, "auto", "cuda") == ("rm", T._bcjr_posterior)
+    for K, window in ((56, None), (96, None), (424, None), (56, 0), (1056, 0)):
+        kind, fn = T._resolve_bcjr(K, window, "auto", "cuda")
+        assert kind == "cm" and fn.func is bcjr_cuda.bcjr_posterior_cm
+        assert fn.keywords == {"K": K, "Lw": K + 3, "D": 0}
+        assert T._resolve_bcjr(K, window, "auto", "cpu") == ("rm", T._bcjr_posterior)
+        assert T._resolve_bcjr(K, window, "plain", "cuda") == ("rm", T._bcjr_posterior)
+    # an unwindowed trellis longer than the kernel's shared memory holds
+    assert bcjr_cuda.LW_MAX == 1816
+    assert T._resolve_bcjr(1813, 0, "auto", "cuda")[1].keywords["Lw"] == 1816
+    for K in (1814, 6144):
+        with pytest.raises(ValueError, match="one window"):
+            T._resolve_bcjr(K, 0, "auto", "cuda")
+        assert T._resolve_bcjr(K, 0, "auto", "cpu") == ("rm", T._bcjr_posterior)
+        assert T._resolve_bcjr(K, 0, "plain", "cuda") == ("rm", T._bcjr_posterior)
     kind, fn = T._resolve_bcjr(848, 64, "cuda_bf16", "cpu")
     assert kind == "cm" and fn.func is bcjr_cuda.bcjr_posterior_cm_bf16
     assert fn.keywords["Lw"] == 64
@@ -160,6 +204,8 @@ def test_resolve_bcjr():
             T._resolve_bcjr(1056, 0, impl, "cpu")
         with pytest.raises(ValueError):
             T._resolve_bcjr(96, None, impl, "cuda")
+        with pytest.raises(ValueError):
+            T._resolve_bcjr(56, 0, impl, "cuda")
     with pytest.raises(ValueError):
         T._resolve_bcjr(1056, None, "pallas", "cpu")
     llr = torch.zeros((1, 3, 1060))
