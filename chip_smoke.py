@@ -38,9 +38,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      K = 6144 x 4 returns the sent bits from clean +-4 LLRs (2 iterations)
      and the float32 kernel's bits at sigma 1.0 (4 iterations);
   4. sync-detection kernel vs its plain twin at the flagship shape (b = 16),
-     at b = 1 and at the wall shape (b = 8, 4 RX rows): sm within rtol 2e-3
-     / atol 2e-4 away from gate ties, and the sync reports' t_fine, detected
-     and n_eff_tx equal;
+     at b = 1, at the wall shape (b = 8, 4 RX rows), at the bench's u8b16
+     cell (u = 8, b = 16, B = 128 streams of 192,512 samples carrying STFs)
+     and at the runtime's chunk (u = 1, b = 1, 2048 + 4 N_STF samples,
+     max_peaks 4): sm within rtol 2e-3 / atol 2e-4 away from gate ties, and
+     the sync reports' t_fine, detected and n_eff_tx equal (with max_peaks
+     4, t_fine and n_eff_tx where a peak is detected); and vs its tiled twin
+     (the kernel's own decomposition) at rtol 1e-5 / atol 1e-6, the
+     measured max |err| reported;
   5. polyphase kernel vs its plain twin at the wall step's shapes (10/9 on
      [16, 4, 23,040], 9/10 on [16, 4, 85,900]), at 40/27 and at a ragged
      9/10 length, rtol 2e-5 / atol 2e-5; a 3-chunk streaming chain equal to
@@ -71,7 +76,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      window at the PCC's and the oracle's shapes beside
      turbo._bcjr_posterior) and the sync and polyphase calls, tens to
      hundreds of microseconds, by CUDA events around CUDA-graph replays (no
-     host launch gaps), and eagerly;
+     host launch gaps), and eagerly; the sync kernel at all four shapes it
+     serves on a path or a cell (flagship, wall, u8b16, the runtime's chunk
+     at B = 1), each beside its bound and plain twin, also with one sub-tile
+     a block (the first version's tile size), with its registers and blocks
+     per SM;
   8. torch.profiler (device activity only) over one flagship and one wall
      step: device kernels launched, their busy time and the device's idle
      share under the profiler, the top kernels by time. Details go to
@@ -431,18 +440,45 @@ def phase_fec_awgn(dev, card, report):
     return launches
 
 
-def _sync_check(step, y, label, report):
-    """Kernel sm vs plain sm on the card; kernel report vs CPU report."""
-    from dectnrp_tpu_torch.phy.ops.sync_detect import (detect_metric_plain,
+def stf_stream(u, b, B, T, n_stf, gen, dev, snr_db=SNR_DB):
+    """[B, 1, T] unit-power noise-like payload after each of n_stf
+    unit-power STFs (N_eff_TX = 1) a stream, at offsets at least 4 STF
+    lengths apart, under AWGN at snr_db: the sync input of a cell whose
+    packets are not synthesized here."""
+    from dectnrp_tpu_torch.phy.sync import stf_time_template
+
+    stf = torch.as_tensor(stf_time_template(u, b, 1), device=dev)
+    L = stf.numel()
+    stf = stf * L ** 0.5
+    rng = np.random.default_rng(T + B)
+    y = torch.zeros((B, 1, T), dtype=torch.complex64, device=dev)
+    slot = (T - 8 * L) // n_stf
+    for i in range(B):
+        for k in range(n_stf):
+            o = k * slot + int(rng.integers(0, slot - 4 * L))
+            n = min(4 * L, T - o - L)
+            y[i, 0, o:o + L] = stf
+            y[i, 0, o + L:o + L + n] = torch.randn(
+                n, dtype=torch.complex64, generator=gen, device=dev)
+    return y + 10 ** (-snr_db / 20) * torch.randn(
+        y.shape, dtype=torch.complex64, generator=gen, device=dev)
+
+
+def _sync_check(s, y, label, report):
+    """Kernel sm vs plain and tiled sm on the card; kernel report vs CPU
+    report."""
+    from dectnrp_tpu_torch.phy.ops.sync_detect import (default_span,
+                                                       detect_metric_plain,
                                                        detect_sm,
                                                        detect_sm_plain,
+                                                       detect_sm_tiled,
                                                        gate_tie_mask)
 
-    s = step.sync
     pr = s.params
     args = (s.P, s.w, s.sl, s.sr, pr.metric_threshold, pr.metric_max)
     got = detect_sm(y, *args)
     want = detect_sm_plain(y, *args)
+    tiled = detect_sm_tiled(y, *args, default_span(y, s.P, s.n_pat, s.sl, s.sr))
     metric, _, _ = detect_metric_plain(y, s.P, s.w)
     ok = gate_tie_mask(metric, pr.metric_threshold, pr.metric_max, s.sl, s.sr,
                        1e-3)
@@ -452,17 +488,35 @@ def _sync_check(step, y, label, report):
     err = (got - want).abs()[ok].max().item()
     require(torch.allclose(got[ok], want[ok], rtol=2e-3, atol=2e-4),
             f"sync {label}: kernel vs plain max |err| {err}")
+    ok_t = gate_tie_mask(metric, pr.metric_threshold, pr.metric_max, s.sl, s.sr,
+                         1e-5)
+    err_t = (got - tiled).abs()[ok_t].max().item()
+    n_eq = int((got == tiled).sum())
+    require(torch.allclose(got[ok_t], tiled[ok_t], rtol=1e-5, atol=1e-6),
+            f"sync {label}: kernel vs tiled twin max |err| {err_t}")
     rep_k = s(y)
     rep_p = s.cpu()(y.cpu())
     s.to(y.device)
-    for key in ("t_fine", "detected", "n_eff_tx"):
-        require(torch.equal(rep_k[key].cpu(), rep_p[key]),
+    det = rep_p["detected"]
+    require(torch.equal(rep_k["detected"].cpu(), det),
+            f"sync {label}: report field detected differs")
+    # with several peaks, an undetected one is the argmax of what the
+    # masking rounds left: zeros up to each twin's rounding residue
+    keep = det if s.max_peaks > 1 else torch.ones_like(det)
+    for key in ("t_fine", "n_eff_tx"):
+        require(torch.equal(rep_k[key].cpu()[keep], rep_p[key][keep]),
                 f"sync {label}: report field {key} differs")
-    report[f"sync_check_{label}"] = {"max_abs_err": err, "tie_masked": masked}
-    print(f"sync {label}: kernel sm == plain twin (max |err| {err:.3g} over "
-          f"{1 - masked:.4f} of samples off gate ties; rtol 2e-3 atol 2e-4); "
-          f"t_fine/detected/n_eff_tx equal to the plain path", flush=True)
-    return err
+    report[f"sync_check_{label}"] = {
+        "shape": list(y.shape), "max_abs_err": err, "tie_masked": masked,
+        "max_abs_err_tiled": err_t, "bit_equal_tiled": n_eq / got.numel(),
+        "detected": det.float().mean().item()}
+    print(f"sync {label} {list(y.shape)}: kernel sm == plain twin (max |err| "
+          f"{err:.3g} over {1 - masked:.4f} of samples off gate ties; rtol 2e-3 "
+          f"atol 2e-4), == tiled twin (max |err| {err_t:.3g}, "
+          f"{n_eq / got.numel():.6f} of samples bit-equal); t_fine/detected/"
+          f"n_eff_tx equal to the plain path (detected {det.float().mean():.3f})",
+          flush=True)
+    return err, err_t
 
 
 def phase_polyphase(wall, dev, report):
@@ -704,6 +758,9 @@ def main() -> int:
         bcjr_windowed_cm_bf16_plain, bcjr_windowed_cm_plain)
     from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior
     from dectnrp_tpu_torch.phy.ops import sync_detect
+    from dectnrp_tpu_torch.phy.sync import build_sync
+    from dectnrp_tpu_torch.sections.part3.transmission_packet_structure import (
+        get_N_samples_STF)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -729,9 +786,27 @@ def main() -> int:
                                     for Lw in (128, 59, 99, 427)}
     require(min(report["bcjr_blocks_per_sm"].values()) >= 1,
             f"bcjr occupancy query failed: {report['bcjr_blocks_per_sm']}")
+    # the sync kernel by b: registers a thread, blocks an SM at R = 1
+    # (and at the wall's R = 4, b = 8), shared memory a block
+    report["sync_regs"] = {P // 16: lib.sync_detect_regs(P)
+                           for P in (16, 32, 64, 128, 192, 256)}
+    report["sync_blocks_per_sm"] = {P // 16: lib.sync_detect_blocks_per_sm(P, 7, 1)
+                                    for P in (16, 32, 64, 128, 192, 256)}
+    report["sync_blocks_per_sm"]["8_R4"] = lib.sync_detect_blocks_per_sm(128, 7, 4)
+    report["sync_blocks_per_sm"]["16_u8"] = lib.sync_detect_blocks_per_sm(256, 9, 1)
+    report["sync_smem_bytes_b16"] = lib.sync_detect_smem_bytes(256, 7, 1)
+    require(min(report["sync_blocks_per_sm"].values()) >= 1
+            and min(report["sync_regs"].values()) > 0,
+            f"sync occupancy query failed: {report['sync_blocks_per_sm']}")
+    # the wrapper refuses by the same shared-memory count as the C entry
+    for P, n_pat, R in ((256, 7, 1), (256, 9, 1), (128, 7, 4), (16, 7, 1)):
+        require(lib.sync_detect_smem_bytes(P, n_pat, R) == sync_detect.kernel_plan(
+            R, 16 * P, P, n_pat, 0, 0).smem, f"sync smem count differs at {P, R}")
     print(f"build: csrc/*.cu -> sm_90a shared library in "
           f"{kernels.build_seconds:.1f} s; bcjr blocks per SM by Lw: "
-          f"{report['bcjr_blocks_per_sm']}", flush=True)
+          f"{report['bcjr_blocks_per_sm']}; sync registers by b "
+          f"{report['sync_regs']}, blocks per SM by b {report['sync_blocks_per_sm']}",
+          flush=True)
 
     # ---- 3. BCJR kernel vs plain twin, turbo round trip
     step = make_flagship_step(FLAGSHIP_PSDEF, n_pkts=N_PKTS, snr_db=SNR_DB)
@@ -752,14 +827,26 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     plcf, tb, offs = _inputs(step, B_FLAG, 7, dev)
     y = step.awgn(step.stream(plcf, tb, offs), gen)
-    sync_err = _sync_check(step, y, "b16", report)
+    sync_errs = [_sync_check(step.sync, y, "b16", report)]
     step1 = make_flagship_step(PacketSizesDef(1, 1, 0, 2, 0, 4, 6144),
                                n_pkts=N_PKTS, snr_db=SNR_DB)
     p1, t1, o1 = _inputs(step1, B_FLAG, 8, dev)
-    _sync_check(step1, step1.awgn(step1.stream(p1, t1, o1), gen), "b1", report)
+    sync_errs.append(_sync_check(step1.sync, step1.awgn(step1.stream(p1, t1, o1),
+                                                        gen), "b1", report))
     pw, tw, ow = _inputs(wall, B_WALL, 9, dev)
     yw = wall.resample_down(wall.awgn(wall.stream(pw, tw, ow), gen))
-    sync_err = max(sync_err, _sync_check(wall, yw, "wall_b8_R4", report))
+    sync_errs.append(_sync_check(wall.sync, yw, "wall_b8_R4", report))
+    # the bench's u8b16 cell (bench.py:316-320: B = 128, T = 2 x 92,160 +
+    # 8192) and the runtime's chunk (upper/runtime.py:139-140)
+    s8 = build_sync(8, 16, 192512, device=dev)
+    y8 = stf_stream(8, 16, 128, 192512, 2, gen, dev)
+    sync_errs.append(_sync_check(s8, y8, "u8b16", report))
+    t_rt = 2048 + 4 * get_N_samples_STF(1, 1)
+    s_rt = build_sync(1, 1, t_rt, max_peaks=4, device=dev)
+    y_rt = stf_stream(1, 1, 16, t_rt, 1, gen, dev)
+    sync_errs.append(_sync_check(s_rt, y_rt, "runtime_u1b1", report))
+    sync_err = max(e for e, _ in sync_errs)
+    sync_err_tiled = max(e for _, e in sync_errs)
 
     # ---- 5. polyphase kernel vs plain twin
     poly_err = phase_polyphase(wall, dev, report)
@@ -850,12 +937,29 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by}
     # the same work counted at the bf16x2 rate (bytes bind either way)
     bf16_bound = bound(*bcjr_work(K, flag_shapes[K]), peak_ops=PEAK_BF16X2)
-    s = step.sync
-    sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold, s.params.metric_max)
-    sync_ms = graph_ms(lambda: sync_detect.detect_sm(y, *sargs))
-    sync_plain_ms = graph_ms(lambda: sync_detect.detect_sm_plain(y, *sargs), reps=5)
-    sync_eager_ms = cuda_ms(lambda: sync_detect.detect_sm(y, *sargs))
-    sync_bound = bound(*sync_work(*y.shape, s.P, s.n_pat))
+    sync_times = {}
+    for label, s, ys in (("flagship", step.sync, y), ("wall", wall.sync, yw),
+                         ("u8b16", s8, y8), ("runtime_B1", s_rt, y_rt[:1])):
+        sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold,
+                 s.params.metric_max)
+        G = sync_detect.kernel_plan(ys.shape[1], ys.shape[2], s.P, s.n_pat,
+                                    s.sl, s.sr).G
+        b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
+        sync_times[label] = {
+            "shape": list(ys.shape), "u": 8 if s.n_pat == 9 else 1,
+            "b": s.P // 16, "span_rows": sync_detect.default_span(ys, s.P, s.n_pat, s.sl, s.sr),
+            "ms": graph_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "one_subtile_ms": graph_ms(
+                lambda: sync_detect.detect_sm(ys, *sargs, span_rows=G)),
+            "ms_again": graph_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "eager_ms": cuda_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "plain_ms": graph_ms(lambda: sync_detect.detect_sm_plain(ys, *sargs),
+                                 reps=5),
+            "bound_ms": b_ms, "bound_by": b_by}
+    sync_ms = sync_times["flagship"]["ms"]
+    sync_plain_ms = sync_times["flagship"]["plain_ms"]
+    sync_eager_ms = sync_times["flagship"]["eager_ms"]
+    sync_bound = (sync_times["flagship"]["bound_ms"], sync_times["flagship"]["bound_by"])
     poly = {}
     # the packets and the noisy radio-rate stream the wall step resamples
     x_up = wall.transmit(pw, tw)
@@ -878,8 +982,7 @@ def main() -> int:
         f"bcjr_K{K}_{flag_shapes[K]}cb_repeat": f32_ms_2,
         f"graph_replay_K{K}_{flag_shapes[K]}cb": bcjr_graph,
         "bcjr_one_window": one_window,
-        "sync_flagship": sync_ms, "sync_flagship_plain": sync_plain_ms,
-        "sync_flagship_eager": sync_eager_ms,
+        "sync": sync_times,
         "polyphase": poly}
     print(f"[{card}] kernels (CUDA events): "
           + "; ".join(f"bcjr K={k} x {b} cb {t[0]:.3f} ms vs plain {t[1]:.3f} ms"
@@ -895,10 +998,13 @@ def main() -> int:
           + "; ".join(f"{k} {v['ms']:.4f} ms ({v['eager_ms']:.4f}) vs "
                       f"{v['bcjr_posterior_ms']:.2f} ms, {v['bound_ms'] * 1e3:.3f} us "
                       f"{v['bound_by']}" for k, v in one_window.items())
-          + "; sync sm "
-          f"B={B_FLAG} T={step.T} {sync_ms:.3f} ms (eager {sync_eager_ms:.3f}) vs "
-          f"plain {sync_plain_ms:.3f} ms (bound {sync_bound[0]:.4f} ms, "
-          f"{sync_bound[1]}); "
+          + "; sync sm, graph replay (again; one sub-tile a block; eager) vs "
+          "plain, bound: " + "; ".join(
+              f"{k} {v['shape']} u{v['u']} b{v['b']} {v['ms'] * 1e3:.1f} us "
+              f"({v['ms_again'] * 1e3:.1f}; {v['one_subtile_ms'] * 1e3:.1f}; "
+              f"{v['eager_ms'] * 1e3:.1f}) vs {v['plain_ms']:.3f} ms, "
+              f"{v['bound_ms'] * 1e3:.2f} us {v['bound_by']}"
+              for k, v in sync_times.items()) + "; "
           + "; ".join(f"polyphase {v['L']}/{v['M']} {v['shape']} {v['ms']:.4f} ms "
                       f"(eager {v['eager_ms']:.4f}) vs plain {v['plain_ms']:.3f} ms "
                       "vs conv1d "
@@ -938,10 +1044,14 @@ def main() -> int:
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",
          "replaces": "dectnrp_tpu/phy/ops/sync_detect.py:62",
          "launches": total("sync"), "launches_by_path": by_path("sync"),
-         "max_abs_err": sync_err, "ms": sync_ms, "plain_ms": sync_plain_ms,
-         "eager_ms": sync_eager_ms,
+         "max_abs_err": sync_err, "max_abs_err_tiled": sync_err_tiled,
+         "ms": sync_ms, "plain_ms": sync_plain_ms, "eager_ms": sync_eager_ms,
          "bound_ms": sync_bound[0], "bound_by": sync_bound[1],
-         "library_ms": None},
+         "library_ms": None, "regs_b16": report["sync_regs"][16],
+         "blocks_per_sm_b16": report["sync_blocks_per_sm"][16],
+         "shapes": {k: {kk: v[kk] for kk in ("ms", "one_subtile_ms", "eager_ms",
+                                             "plain_ms", "bound_ms")}
+                    for k, v in sync_times.items()}},
         {"name": "polyphase_fir", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
          "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",

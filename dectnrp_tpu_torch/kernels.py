@@ -52,8 +52,14 @@ def _declare(lib):
     lib.bcjr_blocks_per_sm.restype = i
     lib.bcjr_posterior_cm_bf16.argtypes = [p, p, p, i, i, i, i, p]
     lib.bcjr_posterior_cm_bf16.restype = i
-    lib.sync_detect_sm.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, p]
+    lib.sync_detect_sm.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, i, p]
     lib.sync_detect_sm.restype = i
+    lib.sync_detect_blocks_per_sm.argtypes = [i, i, i]
+    lib.sync_detect_blocks_per_sm.restype = i
+    lib.sync_detect_regs.argtypes = [i]
+    lib.sync_detect_regs.restype = i
+    lib.sync_detect_smem_bytes.argtypes = [i, i, i]
+    lib.sync_detect_smem_bytes.restype = ctypes.c_longlong
     lib.polyphase_fir.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.polyphase_fir.restype = i
     return lib

@@ -153,32 +153,88 @@ def test_turbo_decode_early_bf16_round_trip(dev):
     assert bcjr_cuda.launches_bf16 >= n0 + 4
 
 
-@pytest.mark.parametrize("u,b,R", [(1, 1, 1), (1, 2, 2), (1, 8, 1), (1, 16, 1),
-                                   (8, 16, 2)])
-def test_sync_kernel_matches_plain(dev, u, b, R):
+# (u, b, R, B, T, span_rows, first row of the STF-like segment): small
+# streams at every b; the shapes the kernel serves at full size (the flagship
+# step, the wall step after its 9/10 resampler, the bench's u8b16 cell, the
+# runtime's chunk of 2048 + 4 N_STF samples); b = 12 with 4 antennas; one
+# sub-tile a block (the first version's tile); and a segment whose metric
+# peak straddles a block and sub-tile boundary (span 16 rows: row 16)
+SYNC_SHAPES = [(1, 1, 1, 3, 300 * 16 + 7, None, 5),
+               (1, 2, 2, 3, 300 * 32 + 7, None, 5),
+               (1, 8, 1, 3, 300 * 128 + 7, None, 5),
+               (1, 16, 1, 3, 300 * 256 + 7, None, 5),
+               (8, 16, 2, 3, 300 * 256 + 7, None, 5),
+               (1, 16, 1, 64, 192512, None, 5),
+               (1, 8, 4, 16, 77310, None, 5),
+               (8, 16, 1, 128, 192512, None, 5),
+               (1, 1, 1, 16, 2048 + 4 * 112, None, 5),
+               (1, 12, 4, 3, 200 * 192 + 5, None, 5),
+               (1, 16, 1, 64, 192512, 8, 5),
+               (1, 8, 2, 3, 100 * 128 + 3, 16, 13)]
+
+
+@pytest.mark.parametrize("u,b,R,B,T,span,seg", SYNC_SHAPES)
+def test_sync_kernel_matches_plain(dev, u, b, R, B, T, span, seg):
+    """The kernel equals its tiled twin (same decomposition and order of
+    operations; held at rtol 1e-5 / atol 1e-6, what differs is torch's
+    own rounding of sqrt and division on the card) and the plain twin at
+    rtol 2e-3 / atol 2e-4 off gate ties."""
     from dectnrp_tpu_torch.sections.part3.stf import cover_sequence
     from dectnrp_tpu_torch.phy.ops import sync_detect
 
-    P, B = 16 * b, 3
-    T = 300 * P + 7
-    g = torch.Generator(device=dev).manual_seed(b)
+    P = 16 * b
+    g = torch.Generator(device=dev).manual_seed(b + R)
     x = torch.randn((B, R, T), dtype=torch.complex64, generator=g, device=dev)
     # a strongly periodic, cover-weighted segment so the gate opens
     cov = torch.as_tensor(np.resize(cover_sequence(u), 12).astype(np.float32),
                           device=dev)
-    x[0, :, 5 * P:17 * P] = x[0, :, :P].repeat(1, 12) * cov.repeat_interleave(P)
+    x[0, :, seg * P:(seg + 12) * P] = (x[0, :, :P].repeat(1, 12)
+                                       * cov.repeat_interleave(P))
     w = torch.as_tensor((cover_sequence(u)[:-1] * cover_sequence(u)[1:]
                          ).astype(np.float32), device=dev)
     sl, sr, thr, mmax = 7 * b, b, 0.25, 1.5
+    if span is None:
+        span = sync_detect.default_span(x, P, w.numel() + 1, sl, sr)
     n0 = sync_detect.launches
-    got = sync_detect.detect_sm(x, P, w, sl, sr, thr, mmax)
+    got = sync_detect.detect_sm(x, P, w, sl, sr, thr, mmax, span_rows=span)
     assert sync_detect.launches == n0 + 1
+    tiled = sync_detect.detect_sm_tiled(x, P, w, sl, sr, thr, mmax, span)
     want = sync_detect.detect_sm_plain(x, P, w, sl, sr, thr, mmax)
+    assert sync_detect.launches == n0 + 1
     metric, _, _ = sync_detect.detect_metric_plain(x, P, w)
     ok = sync_detect.gate_tie_mask(metric, thr, mmax, sl, sr, 1e-3)
     assert ok.float().mean() > 0.9
+    torch.testing.assert_close(got[ok], tiled[ok], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got[ok], want[ok], rtol=2e-3, atol=2e-4)
     assert got[0].max() > thr
+
+
+def test_sync_wrapper_rejects_bad_input(dev):
+    """Shapes the tiling does not serve raise with the reason, in the
+    wrapper and in the C entry: 16 antennas at b = 16 need more shared memory
+    than a block has; b = 3 has no lane layout; smoothing beyond one row."""
+    from dectnrp_tpu_torch import kernels
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+
+    w = torch.ones(6, device=dev)
+    n0 = sync_detect.launches
+    x = torch.zeros((1, 16, 20 * 256), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        sync_detect.detect_sm(x, 256, w, 112, 16, 0.25, 1.5)
+    sm = torch.empty((1, 20 * 256 - 8 * 256), device=dev)
+    assert kernels.load().sync_detect_sm(
+        torch.view_as_real(x).data_ptr(), w.data_ptr(), sm.data_ptr(), 1, 16,
+        20 * 256, 256, 7, 112, 16, 0.25, 1.5, 8,
+        kernels.stream_ptr(x.device)) != 0
+    y = torch.zeros((1, 1, 20 * 48), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="16 b"):
+        sync_detect.detect_sm(y, 48, w, 21, 3, 0.25, 1.5)
+    z = torch.zeros((1, 1, 20 * 16), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="one row"):
+        sync_detect.detect_sm(z, 16, w, 17, 1, 0.25, 1.5)
+    with pytest.raises(ValueError):
+        sync_detect.detect_sm(z.to(torch.complex128), 16, w, 7, 1, 0.25, 1.5)
+    assert sync_detect.launches == n0
 
 
 RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),

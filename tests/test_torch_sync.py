@@ -167,3 +167,207 @@ def test_sync_report_matches_jax(max_peaks):
     t_f = np.sort(rt["t_fine"].numpy().reshape(B, -1), axis=1)
     np.testing.assert_allclose(t_f, np.sort(np.asarray(offs)[:, :max_peaks], 1),
                                atol=2)
+
+
+def _w_of(u):
+    from dectnrp_tpu.sections.part3.stf import cover_sequence
+
+    cov = cover_sequence(u)
+    return torch.as_tensor((cov[:-1] * cov[1:]).astype(np.float32))
+
+
+def _tiled_sm(x, u, b, span_rows=None):
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+    from dectnrp_tpu_torch.phy.sync import SyncParams
+
+    pr = SyncParams()
+    sm = sync_detect.detect_sm_tiled(torch.as_tensor(x), 16 * b, _w_of(u),
+                                     pr.smooth_left * b, pr.smooth_right * b,
+                                     pr.metric_threshold, pr.metric_max,
+                                     span_rows)
+    return sm.numpy(), pr
+
+
+# (u, b, R): every DECT NR+ b the kernel serves beside b = 4, both cover
+# lengths (n_pat 7 and 9), 1 and 4 antennas; T ragged (not a whole row)
+TILED_CASES = [(1, 1, 1), (8, 1, 4), (1, 2, 4), (8, 2, 1), (1, 8, 1),
+               (8, 8, 4), (1, 12, 4), (8, 12, 1), (1, 16, 1), (8, 16, 4)]
+
+
+@pytest.mark.parametrize("u,b,R", TILED_CASES)
+def test_tiled_sm_matches_float64(u, b, R):
+    """The kernel's tiled twin against the float64 reference, and equal to
+    itself bit for bit whatever the span a block walks (every sum in it is
+    row-local): one sub-tile a block, a span that is no multiple of the
+    sub-tile, one block a stream."""
+    from dectnrp_tpu_torch.phy.ops.sync_detect import kernel_plan
+
+    P = 16 * b
+    T = 40 * P + 5 * b + 3
+    x = _stream(u, b, T, R=R, seed=10 * b + R)
+    got, pr = _tiled_sm(x, u, b)
+    ref, metric = _sm_reference(x.astype(np.complex128), u, b,
+                                pr.metric_threshold, pr.metric_max,
+                                pr.smooth_left * b, pr.smooth_right * b)
+    assert ref.max() > pr.metric_threshold
+    _assert_sm_close(got, ref, metric, pr, b)
+    G = kernel_plan(R, T, P, _w_of(u).numel() + 1, 7 * b, b).G
+    for span in (G, 3):
+        np.testing.assert_array_equal(_tiled_sm(x, u, b, span)[0], got)
+
+
+@pytest.mark.parametrize("u,b", [(1, 8), (8, 16)])
+def test_tiled_sm_matches_pallas_interpret(u, b):
+    from dectnrp_tpu.phy.ops.sync_detect import build_sync_sm
+
+    T = 40 * 16 * b + 7
+    x = _stream(u, b, T)
+    got, pr = _tiled_sm(x, u, b, 8)
+    f = build_sync_sm(u, b, T, 2, tuple(float(v) for v in _w_of(u)),
+                      pr.metric_threshold, pr.metric_max, pr.smooth_left * b,
+                      pr.smooth_right * b, interpret=True)
+    want = np.asarray(f(jnp.asarray(x.real), jnp.asarray(x.imag)))
+    _, metric = _sm_reference(x.astype(np.complex128), u, b,
+                              pr.metric_threshold, pr.metric_max,
+                              pr.smooth_left * b, pr.smooth_right * b)
+    _assert_sm_close(got, want, metric, pr, b)
+
+
+@pytest.mark.parametrize("u,b,R", [(1, 16, 1), (8, 2, 4), (1, 1, 2)])
+def test_tiled_sm_shorter_than_one_span(u, b, R):
+    """A stream of fewer output rows than one sub-tile: prologue and
+    epilogue in the same block."""
+    from dectnrp_tpu.sections.part3.stf import n_stf_patterns
+
+    P = 16 * b
+    T = (n_stf_patterns(u) + 1 + 3) * P - 5
+    rng = np.random.default_rng(b)
+    x = (rng.standard_normal((2, R, T))
+         + 1j * rng.standard_normal((2, R, T))).astype(np.complex64)
+    x[0, :, P:] = x[0, :, :T - P]          # periodic at lag P: the gate opens
+    got, pr = _tiled_sm(x, u, b)
+    ref, metric = _sm_reference(x.astype(np.complex128), u, b,
+                                pr.metric_threshold, pr.metric_max,
+                                pr.smooth_left * b, pr.smooth_right * b)
+    assert got.shape == ref.shape
+    _assert_sm_close(got, ref, metric, pr, b)
+    np.testing.assert_array_equal(_tiled_sm(x, u, b, 1)[0], got)
+
+
+def test_tiled_sm_stf_across_block_and_subtile_boundary():
+    """A cover-weighted segment whose metric peak and smoothing window
+    straddle row 16 = the boundary of two blocks of 16 rows (and so of two
+    sub-tiles) and row 8, a sub-tile boundary inside the first block."""
+    u, b, R = 1, 8, 2
+    P = 16 * b
+    T = 100 * P + 3
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2, R, T))
+         + 1j * rng.standard_normal((2, R, T))).astype(np.complex64)
+    from dectnrp_tpu.sections.part3.stf import cover_sequence
+    for row in (13, 5):
+        x[0 if row == 13 else 1, :, row * P:(row + 12) * P] = np.tile(
+            x[0, :, :P], (1, 12)) * np.repeat(np.resize(cover_sequence(u), 12),
+                                              P)[None]
+    got, pr = _tiled_sm(x, u, b, 16)
+    ref, metric = _sm_reference(x.astype(np.complex128), u, b,
+                                pr.metric_threshold, pr.metric_max,
+                                pr.smooth_left * b, pr.smooth_right * b)
+    peak = ref.argmax(-1)
+    assert ref[0, peak[0]] > pr.metric_threshold
+    assert abs(int(peak[0]) - 16 * P) < 4 * P and abs(int(peak[1]) - 8 * P) < 4 * P
+    _assert_sm_close(got, ref, metric, pr, b)
+    np.testing.assert_array_equal(_tiled_sm(x, u, b)[0], got)
+
+
+def test_kernel_plan_refuses_what_the_tiling_cannot_serve():
+    from dectnrp_tpu_torch.phy.ops.sync_detect import auto_span, kernel_plan
+
+    pl = kernel_plan(1, 192512, 256, 7, 112, 16)
+    assert (pl.V, pl.Q, pl.G, pl.n_rows) == (8, 32, 8, 744)
+    assert pl.smem == 91552
+    assert kernel_plan(4, 77310, 128, 7, 56, 8).V == 4
+    assert kernel_plan(1, 2496, 16, 7, 7, 1).Q == 16
+    with pytest.raises(ValueError, match="16 b"):
+        kernel_plan(1, 4000, 48, 7, 21, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel_plan(16, 192512, 256, 7, 112, 16)
+    with pytest.raises(ValueError, match="one row"):
+        kernel_plan(1, 4000, 16, 7, 17, 1)
+    with pytest.raises(ValueError, match="one row"):
+        kernel_plan(1, 4000, 16, 7, 7, 16)
+    with pytest.raises(ValueError, match="n_pat"):
+        kernel_plan(1, 40000, 256, 17, 112, 16)
+    with pytest.raises(ValueError, match="shorter"):
+        kernel_plan(1, 8 * 256, 256, 7, 112, 16)
+    # one wave: 64 streams x 4 blocks <= 2 x 132 resident, whole sub-tiles
+    assert auto_span(64, 744, 8, 264) == 192
+    assert auto_span(128, 744, 8, 264) == 376
+    assert auto_span(1000, 10, 8, 264) == 16
+
+
+def _runtime_stream(u, b, T, with_packet, seed):
+    from dectnrp_tpu.phy.tx import build_tx
+    from dectnrp_tpu.sections.part3.packet_sizes import get_packet_sizes
+
+    rng = np.random.default_rng(seed)
+    stream = (rng.standard_normal((2, 1, T))
+              + 1j * rng.standard_normal((2, 1, T))).astype(np.complex64)
+    stream *= np.sqrt(10 ** (-15 / 10) / 2)
+    if with_packet:
+        psdef = PacketSizesDef(u, b, 0, 2, 0, 1, 6144)
+        tx = build_tx(psdef, 0x12345678, 1)
+        plcf = jnp.asarray(rng.integers(0, 2, (2, 40)), jnp.uint8)
+        tb = jnp.asarray(rng.integers(0, 2, (2, get_packet_sizes(psdef).N_TB_bits)),
+                         jnp.uint8)
+        fl = jnp.zeros((2,), bool)
+        iq = np.asarray(tx(plcf, tb, fl, fl))
+        rot = np.exp(1j * 2e-4 * np.arange(iq.shape[-1])).astype(np.complex64)
+        for i, o in enumerate((300, 1100)):
+            n = min(iq.shape[-1], T - o)
+            stream[i, :, o:o + n] += (iq[i] * rot)[:, :n]
+    return stream
+
+
+@pytest.mark.parametrize("with_packet", [True, False])
+@pytest.mark.parametrize("u,b", [(1, 1), (1, 2), (2, 1)])
+def test_runtime_shape_sync_report_matches_jax(u, b, with_packet):
+    """The runtime's sync call (upper/runtime.py:139-140): a chunk of
+    2048 + 4 N_STF samples, max_peaks = 4, with a packet starting in it and
+    on noise alone; the port's report equals JAX build_sync's."""
+    from dectnrp_tpu.phy.sync import build_sync
+    from dectnrp_tpu.sections.part3.transmission_packet_structure import (
+        get_N_samples_STF)
+    from dectnrp_tpu_torch.phy.sync import build_sync as t_build_sync
+
+    T = 2048 + 4 * get_N_samples_STF(u, b)
+    stream = _runtime_stream(u, b, T, with_packet, 17 * u + b)
+    rj = build_sync(u, b, T, max_peaks=4)(jnp.asarray(stream))
+    sync = t_build_sync(u, b, T, max_peaks=4, device="cpu")
+    rt = sync(torch.as_tensor(stream))
+    np.testing.assert_array_equal(rt["detected"].numpy(), np.asarray(rj["detected"]))
+    det = rt["detected"].numpy()
+    assert det[:, 0].all() if with_packet else not det.any()
+    # a peak is compared where the port's smoothed metric there is a real
+    # value: after the masking rounds the rest of sm is 0 up to the plain
+    # twin's prefix-sum residue (~2e-7 where XLA's is exactly 0), and argmax
+    # over such ties lands anywhere; on noise alone every peak is such a tie
+    # in both and all must agree
+    sm = sync_detect_sm_of(sync, stream)
+    real = np.take_along_axis(sm, rt["t_coarse"].numpy(), 1) > 1e-6
+    keep = real | det if with_packet else np.ones_like(det)
+    for k in ("t_fine", "n_eff_tx"):
+        np.testing.assert_array_equal(rt[k].numpy()[keep], np.asarray(rj[k])[keep],
+                                      err_msg=k)
+    np.testing.assert_allclose(rt["cfo"].numpy()[keep], np.asarray(rj["cfo"])[keep],
+                               atol=1e-6)
+    np.testing.assert_allclose(rt["metric"].numpy()[keep],
+                               np.asarray(rj["metric"])[keep], rtol=1e-3)
+
+
+def sync_detect_sm_of(sync, stream):
+    from dectnrp_tpu_torch.phy.ops.sync_detect import detect_sm_plain
+
+    pr = sync.params
+    return detect_sm_plain(torch.as_tensor(stream), sync.P, sync.w, sync.sl,
+                           sync.sr, pr.metric_threshold, pr.metric_max).numpy()
