@@ -78,9 +78,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      hundreds of microseconds, by CUDA events around CUDA-graph replays (no
      host launch gaps), and eagerly; the sync kernel at all four shapes it
      serves on a path or a cell (flagship, wall, u8b16, the runtime's chunk
-     at B = 1), each beside its bound and plain twin, also with one sub-tile
-     a block (the first version's tile size), with its registers and blocks
-     per SM;
+     at B = 1), each beside its bound and plain twin, with its registers
+     (from the ptxas log) and blocks per SM;
   8. torch.profiler (device activity only) over one flagship and one wall
      step: device kernels launched, their busy time and the device's idle
      share under the profiler, the top kernels by time. Details go to
@@ -94,6 +93,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -171,6 +171,16 @@ def bound(nbytes, ops, peak_ops=PEAK_FP32):
     outside the tensor cores unless `peak_ops` says otherwise)."""
     t_b, t_o = nbytes / PEAK_BYTES, ops / peak_ops
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def ptxas_regs(log, kernel):
+    """{(template arguments): registers a thread} of each instance of
+    `kernel` in nvcc's -Xptxas -v log (instances templated on ints)."""
+    found = re.findall(
+        rf"Compiling entry function '[^']*{kernel}I((?:Li\d+E)+)E[^']*'.*?"
+        r"Used (\d+) registers", log, flags=re.S)
+    return {tuple(int(a) for a in re.findall(r"Li(\d+)E", args)): int(n)
+            for args, n in found}
 
 
 def bcjr_work(K, n_cb, windowed=True):
@@ -786,22 +796,24 @@ def main() -> int:
                                     for Lw in (128, 59, 99, 427)}
     require(min(report["bcjr_blocks_per_sm"].values()) >= 1,
             f"bcjr occupancy query failed: {report['bcjr_blocks_per_sm']}")
-    # the sync kernel by b: registers a thread, blocks an SM at R = 1
-    # (and at the wall's R = 4, b = 8), shared memory a block
-    report["sync_regs"] = {P // 16: lib.sync_detect_regs(P)
-                           for P in (16, 32, 64, 128, 192, 256)}
-    report["sync_blocks_per_sm"] = {P // 16: lib.sync_detect_blocks_per_sm(P, 7, 1)
-                                    for P in (16, 32, 64, 128, 192, 256)}
-    report["sync_blocks_per_sm"]["8_R4"] = lib.sync_detect_blocks_per_sm(128, 7, 4)
-    report["sync_blocks_per_sm"]["16_u8"] = lib.sync_detect_blocks_per_sm(256, 9, 1)
-    report["sync_smem_bytes_b16"] = lib.sync_detect_smem_bytes(256, 7, 1)
+    # the sync kernel by b: registers a thread (ptxas), blocks an SM at
+    # R = 1, at the wall's R = 4, b = 8, at u = 8 and with 8 antennas at b = 16
+    # (two stages of 4)
+    report["sync_regs"] = {v * q // 16: n for (v, q), n in ptxas_regs(
+        kernels.build_log, "sync_sm_kernel").items()}
+
+    def sync_occupancy(R, b, n_pat=7):
+        pl = sync_detect.kernel_plan(R, 16 * b * 16, 16 * b, n_pat, 0, 0)
+        return lib.sync_detect_blocks_per_sm(16 * b, n_pat, pl.RC)
+    report["sync_blocks_per_sm"] = {b: sync_occupancy(1, b)
+                                    for b in (1, 2, 4, 8, 12, 16)}
+    report["sync_blocks_per_sm"]["8_R4"] = sync_occupancy(4, 8)
+    report["sync_blocks_per_sm"]["16_u8"] = sync_occupancy(1, 16, 9)
+    report["sync_blocks_per_sm"]["16_R8"] = sync_occupancy(8, 16)
     require(min(report["sync_blocks_per_sm"].values()) >= 1
-            and min(report["sync_regs"].values()) > 0,
-            f"sync occupancy query failed: {report['sync_blocks_per_sm']}")
-    # the wrapper refuses by the same shared-memory count as the C entry
-    for P, n_pat, R in ((256, 7, 1), (256, 9, 1), (128, 7, 4), (16, 7, 1)):
-        require(lib.sync_detect_smem_bytes(P, n_pat, R) == sync_detect.kernel_plan(
-            R, 16 * P, P, n_pat, 0, 0).smem, f"sync smem count differs at {P, R}")
+            and sorted(report["sync_regs"]) == [1, 2, 4, 8, 12, 16],
+            f"sync occupancy or register query failed: "
+            f"{report['sync_blocks_per_sm']}, {report['sync_regs']}")
     print(f"build: csrc/*.cu -> sm_90a shared library in "
           f"{kernels.build_seconds:.1f} s; bcjr blocks per SM by Lw: "
           f"{report['bcjr_blocks_per_sm']}; sync registers by b "
@@ -942,15 +954,11 @@ def main() -> int:
                          ("u8b16", s8, y8), ("runtime_B1", s_rt, y_rt[:1])):
         sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold,
                  s.params.metric_max)
-        G = sync_detect.kernel_plan(ys.shape[1], ys.shape[2], s.P, s.n_pat,
-                                    s.sl, s.sr).G
         b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
         sync_times[label] = {
             "shape": list(ys.shape), "u": 8 if s.n_pat == 9 else 1,
             "b": s.P // 16, "span_rows": sync_detect.default_span(ys, s.P, s.n_pat, s.sl, s.sr),
             "ms": graph_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
-            "one_subtile_ms": graph_ms(
-                lambda: sync_detect.detect_sm(ys, *sargs, span_rows=G)),
             "ms_again": graph_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
             "eager_ms": cuda_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
             "plain_ms": graph_ms(lambda: sync_detect.detect_sm_plain(ys, *sargs),
@@ -998,11 +1006,9 @@ def main() -> int:
           + "; ".join(f"{k} {v['ms']:.4f} ms ({v['eager_ms']:.4f}) vs "
                       f"{v['bcjr_posterior_ms']:.2f} ms, {v['bound_ms'] * 1e3:.3f} us "
                       f"{v['bound_by']}" for k, v in one_window.items())
-          + "; sync sm, graph replay (again; one sub-tile a block; eager) vs "
-          "plain, bound: " + "; ".join(
+          + "; sync sm, graph replay (again; eager) vs plain, bound: " + "; ".join(
               f"{k} {v['shape']} u{v['u']} b{v['b']} {v['ms'] * 1e3:.1f} us "
-              f"({v['ms_again'] * 1e3:.1f}; {v['one_subtile_ms'] * 1e3:.1f}; "
-              f"{v['eager_ms'] * 1e3:.1f}) vs {v['plain_ms']:.3f} ms, "
+              f"({v['ms_again'] * 1e3:.1f}; {v['eager_ms'] * 1e3:.1f}) vs {v['plain_ms']:.3f} ms, "
               f"{v['bound_ms'] * 1e3:.2f} us {v['bound_by']}"
               for k, v in sync_times.items()) + "; "
           + "; ".join(f"polyphase {v['L']}/{v['M']} {v['shape']} {v['ms']:.4f} ms "
@@ -1049,8 +1055,8 @@ def main() -> int:
          "bound_ms": sync_bound[0], "bound_by": sync_bound[1],
          "library_ms": None, "regs_b16": report["sync_regs"][16],
          "blocks_per_sm_b16": report["sync_blocks_per_sm"][16],
-         "shapes": {k: {kk: v[kk] for kk in ("ms", "one_subtile_ms", "eager_ms",
-                                             "plain_ms", "bound_ms")}
+         "shapes": {k: {kk: v[kk] for kk in ("ms", "eager_ms", "plain_ms",
+                                             "bound_ms")}
                     for k, v in sync_times.items()}},
         {"name": "polyphase_fir", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",

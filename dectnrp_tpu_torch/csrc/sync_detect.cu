@@ -22,30 +22,37 @@
 // i-1, i, i+1 (sl, sr+1 <= P). Against the three losses of the first version:
 //  1. Scans in registers: a lane scans its V samples serially, one segmented
 //     warp-shuffle scan over the Q lanes finishes the row. No barrier is
-//     spent on a scan; a sub-tile of G = 256/Q rows costs 2 barriers.
-//  2. One read of x: each sub-tile's x rows are copied into a shared ring
-//     of 2G+1 rows with cp.async, 16 bytes a lane, coalesced, while the
-//     sub-tile before computes (no registers held, no load latency in the
-//     chain); row j's product takes x row j+1 from the ring, so each sample
-//     is read from device memory once per block. A block walks a long span
-//     of rows (about one wave over the card, chosen by the wrapper from the
-//     occupancy below) in sub-tiles of G rows; the n_pat+1 prefix rows and
+//     spent on a scan; a sub-tile of G = 256/Q rows costs 2 barriers (one
+//     more for each further antenna stage, see 3).
+//  2. One read of x: the x rows of a sub-tile (its G prefix rows and the
+//     one after) are copied into shared memory with cp.async, 16 bytes a
+//     thread, coalesced over the whole block, while the stage before
+//     computes (no registers held, no load latency in the chain); row j's
+//     product takes x row j+1 from the same copy, so each sample is read
+//     from device memory once per block (the one row two sub-tiles share
+//     again from L2). Spread over all warps, not a row a warp, the copy
+//     also keeps the b = 16 instance below 128 registers. A block walks a
+//     long span of rows (about one wave over the card, chosen by the wrapper
+//     from the occupancy below) in sub-tiles of G rows; the n_pat+1 prefix rows and
 //     2 metric rows a sub-tile shares with the next stay in shared rings, so
 //     only the span's first n_pat+2 rows are a halo. Row-local sums need no
 //     rebasing.
 //  3. Antennas are summed in registers before the scans (the moving sums are
-//     linear), C and P2 are formed in registers from the telescoped form,
-//     5 complex (8-byte) + 2 real shared reads an output, in a [k][lane]
-//     layout with lanes on consecutive words: no bank conflicts (the x ring
-//     is swizzled for its 16-byte reads, see swz).
+//     linear): a sub-tile takes its antennas in stages of RC (all R where
+//     they fit), each stage's x rows in one half of a double buffer, so the
+//     shared memory a block takes does not grow with R. C and P2 are formed
+//     in registers from the telescoped form, 5 complex (8-byte) + 2 real
+//     shared reads an output, in a [k][lane] layout with lanes on
+//     consecutive words: no bank conflicts (the x rows are swizzled for
+//     their 16-byte reads, see swz).
 // Products and sums use __fmul_rn / __fadd_rn where a contraction into an FMA
 // would round differently from the tiled twin (phy/ops/sync_detect.py
 // ::detect_sm_tiled), which repeats this order of operations; FMAs remain
 // only where the product is exact (weights +-1, +-2). The two divisions are
 // multiplications by an IEEE reciprocal (1/P2 and 1/k), as in the twin.
 //
-// Serves DECT NR+'s b in {1, 2, 4, 8, 12, 16}, any R whose ring fits shared
-// memory, every u; the TPU kernel's P % 128 == 0 limit does not apply.
+// Serves DECT NR+'s b in {1, 2, 4, 8, 12, 16}, every R and every u; the TPU
+// kernel's P % 128 == 0 limit does not apply.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,7 +96,7 @@ __device__ __forceinline__ float row_excl_scan(float (&a)[V], int lq) {
   return tot;
 }
 
-// The x ring keeps each row in sample order, in 16-byte chunks of two
+// The x buffer keeps each row in sample order, in 16-byte chunks of two
 // samples; chunk c of a row sits at swz<V>(c), which spreads the chunks a
 // quarter-warp reads at once (lane lq reads chunks lq V/2 .. lq V/2 + V/2-1)
 // over the 8 bank groups, while the copy writes consecutive chunks.
@@ -111,31 +118,7 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes,
                  "l"(src), "r"(src_bytes));
 }
 
-// Starts the copy of x row `row` of one antenna (samples row P .. row P +
-// P-1, zero outside [0, T)) into its ring slot, without waiting.
-template <int V, int Q>
-__device__ __forceinline__ void copy_row(float2* dst, const float2* xa, int row,
-                                          int lq, int T, bool vec) {
-  constexpr int P = Q * V;
-  const long long e0 = (long long)row * P;
-  if (vec) {
-#pragma unroll
-    for (int c = lq; c < P / 2; c += Q) {
-      const long long e = e0 + 2 * c;
-      const int n = (e < 0 || e >= T) ? 0 : (e + 1 < T ? 16 : 8);
-      cp_async(dst + 2 * swz<V>(c), n ? xa + e : xa, 16, n);
-    }
-  } else {
-#pragma unroll
-    for (int i = lq; i < P; i += Q) {
-      const long long e = e0 + i;
-      const int n = (e >= 0 && e < T) ? 8 : 0;
-      cp_async(dst + 2 * swz<V>(i >> 1) + (i & 1), n ? xa + e : xa, 8, n);
-    }
-  }
-}
-
-// Lane lq's V samples of a ring row.
+// Lane lq's V samples of a buffered x row.
 template <int V, int Q>
 __device__ __forceinline__ void read_run(const float2* row, int lq, float2 (&v)[V]) {
   if constexpr (V % 2 == 0) {
@@ -160,8 +143,8 @@ template <int V, int Q>
 __global__ void __launch_bounds__(NT, 2)
 sync_sm_kernel(const float2* __restrict__ x, const float* __restrict__ w,
                float* __restrict__ sm, int R, int T, int n_pat, int sl, int sr,
-               float thr, float mmax, int n_rows, int span, int n_span,
-               int vec_in, int vec_out) {
+               float thr, float mmax, int RC, int n_rows, int span,
+               int n_span, int vec_in, int vec_out) {
   constexpr int P = Q * V;
   constexpr int G = NT / Q;           // row groups: rows a sub-tile
   extern __shared__ float smem[];
@@ -172,7 +155,7 @@ sync_sm_kernel(const float2* __restrict__ x, const float* __restrict__ w,
   float* g_tot = gr + (G + 2) * P;    // [G+4]
   float* cw = g_tot + (G + 4);        // c_m [W_SLOTS]
   float* ww = cw + W_SLOTS;           // w_j [W_SLOTS]
-  float2* xr = reinterpret_cast<float2*>(ww + W_SLOTS);  // [2G+1][R][P]
+  float2* xr = reinterpret_cast<float2*>(ww + W_SLOTS);  // [2][G+1][RC][P]
 
   const int tid = threadIdx.x;
   const int lq = tid % Q, grp = tid / Q;
@@ -196,18 +179,48 @@ sync_sm_kernel(const float2* __restrict__ x, const float* __restrict__ w,
   // of every prefix row it needs was loaded by this block.
   const int s_min = -((n_pat + 3 + G - 1) / G);
   const int n_it = (o_end - o0 + G - 1) / G;
-  constexpr int XS = 2 * G + 1;      // x ring: this sub-tile's rows and the next's
-  // x rows of sub-tile s: group g copies row o0 + 1 + s G + n_pat + g + 1
-  auto start_copy = [&](int s_) {
-    const int jn = o0 + 2 + s_ * G + n_pat + grp;
-    if (jn >= o0 - 1 && jn <= o_end + n_pat + 1) {
-      float2* dst = xr + (size_t)pmod(jn, XS) * R * P;
-      for (int r = 0; r < R; ++r)
-        copy_row<V, Q>(dst + (size_t)r * P, xb + (size_t)r * T, jn, lq, T, vec_in);
+  const int n_c = (R + RC - 1) / RC;  // antenna stages a sub-tile
+  // stage (s, c): x rows js .. js+G of antennas [c RC, c RC + RC) into
+  // buffer half h, spread over all NT threads: 16-byte chunks of two
+  // samples where T is even and x 16-byte aligned, else 8-byte samples
+  auto start_copy = [&](int s_, int c_, int h) {
+    const int js0 = o0 + 1 + s_ * G + n_pat;
+    const int r0 = c_ * RC, nr = min(RC, R - r0);
+    float2* dst = xr + (size_t)h * (G + 1) * RC * P;
+    if (vec_in) {
+#pragma unroll 1
+      for (int r = 0; r < nr; ++r) {
+        const float2* xa = xb + (size_t)(r0 + r) * T;
+        for (int id = tid; id < (G + 1) * (P / 2); id += NT) {
+          const int i = id / (P / 2), cc = id % (P / 2);
+          const int row = js0 + i;
+          if (row >= o0 - 1 && row <= o_end + n_pat + 1) {
+            const long long e = (long long)row * P + 2 * cc;
+            const int n = (e < 0 || e >= T) ? 0 : (e + 1 < T ? 16 : 8);
+            cp_async(dst + ((size_t)i * RC + r) * P + 2 * swz<V>(cc),
+                     n ? xa + e : xa, 16, n);
+          }
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int r = 0; r < nr; ++r) {
+        const float2* xa = xb + (size_t)(r0 + r) * T;
+        for (int id = tid; id < (G + 1) * P; id += NT) {
+          const int i = id / P, k = id % P;
+          const int row = js0 + i;
+          if (row >= o0 - 1 && row <= o_end + n_pat + 1) {
+            const long long e = (long long)row * P + k;
+            const int n = (e >= 0 && e < T) ? 8 : 0;
+            cp_async(dst + ((size_t)i * RC + r) * P + 2 * swz<V>(k >> 1) + (k & 1),
+                     n ? xa + e : xa, 8, n);
+          }
+        }
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
-  start_copy(s_min);
+  start_copy(s_min, 0, 0);
 
   // output row o: box sum from the gated prefix of rows o-1, o, o+1
   auto output_row = [&](int o) {
@@ -248,40 +261,62 @@ sync_sm_kernel(const float2* __restrict__ x, const float* __restrict__ w,
       if (t0g + k < n_t) dst[k] = out[k];
   };
 
+  // stage c of the sub-tile: add its antennas' products and powers to
+  // prefix row j (x rows j, j+1 at rows grp, grp+1 of buffer half `hf`),
+  // antenna after antenna from 0 as the twin adds them
+  float pr[V], pi[V], pw[V];
+  auto add_stage = [&](int c, int hf) {
+    const float2* cur = xr + ((size_t)hf * (G + 1) + grp) * RC * P;
+    const float2* nxt = cur + (size_t)RC * P;
+    const int nr = min(RC, R - c * RC);
+#pragma unroll 1
+    for (int r = 0; r < nr; ++r) {
+      float2 a[V], e[V];
+      read_run<V, Q>(cur + (size_t)r * P, lq, a);
+      read_run<V, Q>(nxt + (size_t)r * P, lq, e);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        // x[i] conj(x[i+P]) and |x[i]|^2
+        const float qr = __fadd_rn(__fmul_rn(a[k].x, e[k].x), __fmul_rn(a[k].y, e[k].y));
+        const float qi = __fsub_rn(__fmul_rn(a[k].y, e[k].x), __fmul_rn(a[k].x, e[k].y));
+        const float qw = __fadd_rn(__fmul_rn(a[k].x, a[k].x), __fmul_rn(a[k].y, a[k].y));
+        pr[k] = __fadd_rn(pr[k], qr);
+        pi[k] = __fadd_rn(pi[k], qi);
+        pw[k] = __fadd_rn(pw[k], qw);
+      }
+    }
+  };
+  // a stage's x rows have landed; start the next stage's copy
+  auto next_stage = [&](int s, int c, int hf) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (c + 1 < n_c) start_copy(s, c + 1, hf ^ 1);
+    else if (s + 1 < n_it) start_copy(s + 1, 0, hf ^ 1);
+  };
+
   // iteration s also writes the output rows of iteration s-1, whose metric
-  // rows are complete at its first barrier: two barriers a sub-tile
+  // rows are complete at its first barrier: 1 + n_c barriers a sub-tile
+  int half = 0;                       // buffer half of the current stage
   for (int s = s_min; s <= n_it; ++s) {
     const int bs = o0 + 1 + s * G;
     const int j = bs + n_pat + grp;   // this group's prefix row
-    const int jn = j + 1;
 
-    // ---- this sub-tile's x rows have landed; start the next sub-tile's
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-    if (s + 1 < n_it) start_copy(s + 1);
+    next_stage(s, 0, half);
     if (s >= 1 && bs - 1 - G + grp < o_end) output_row(bs - 1 - G + grp);
     if (s == n_it) break;
 
-    // ---- prefix row j: antennas summed, then scanned
+    // ---- prefix row j: antennas summed, stage by stage, then scanned
     {
-      const float2* cur = xr + (size_t)pmod(j, XS) * R * P;
-      const float2* nxt = xr + (size_t)pmod(jn, XS) * R * P;
-      float pr[V], pi[V], pw[V];
-      for (int r = 0; r < R; ++r) {
-        float2 a[V], c[V];
-        read_run<V, Q>(cur + (size_t)r * P, lq, a);
-        read_run<V, Q>(nxt + (size_t)r * P, lq, c);
 #pragma unroll
-        for (int k = 0; k < V; ++k) {
-          // x[i] conj(x[i+P]) and |x[i]|^2
-          const float qr = __fadd_rn(__fmul_rn(a[k].x, c[k].x), __fmul_rn(a[k].y, c[k].y));
-          const float qi = __fsub_rn(__fmul_rn(a[k].y, c[k].x), __fmul_rn(a[k].x, c[k].y));
-          const float qw = __fadd_rn(__fmul_rn(a[k].x, a[k].x), __fmul_rn(a[k].y, a[k].y));
-          pr[k] = r ? __fadd_rn(pr[k], qr) : qr;
-          pi[k] = r ? __fadd_rn(pi[k], qi) : qi;
-          pw[k] = r ? __fadd_rn(pw[k], qw) : qw;
-        }
+      for (int k = 0; k < V; ++k) pr[k] = pi[k] = pw[k] = 0.f;
+      add_stage(0, half);
+#pragma unroll 1
+      for (int c = 1; c < n_c; ++c) {
+        half ^= 1;
+        next_stage(s, c, half);
+        add_stage(c, half);
       }
+      half ^= 1;
       const float tr = row_excl_scan<V, Q>(pr, lq);
       const float ti = row_excl_scan<V, Q>(pi, lq);
       const float tw = row_excl_scan<V, Q>(pw, lq);
@@ -364,13 +399,14 @@ sync_sm_kernel(const float2* __restrict__ x, const float* __restrict__ w,
       }
     }
     // no further barrier: the copies the next iteration starts after its
-    // first barrier, and its prefix and metric rows after its first and
-    // second, overwrite rows last read before those barriers.
+    // first barrier go to the buffer half read before it, and its prefix
+    // and metric rows, written after its last stage's and its scan barrier,
+    // overwrite rows last read before those barriers.
   }
 }
 
 using KernelFn = void (*)(const float2*, const float*, float*, int, int, int, int,
-                          int, float, float, int, int, int, int, int);
+                          int, float, float, int, int, int, int, int, int);
 
 KernelFn pick(int P) {
   switch (P) {
@@ -384,36 +420,34 @@ KernelFn pick(int P) {
   }
 }
 
-size_t smem_bytes(int P, int n_pat, int R) {
+// Shared memory a block takes with RC antennas a stage (bytes); the wrapper
+// (phy/ops/sync_detect.py::kernel_plan) picks RC from the same count.
+size_t smem_bytes(int P, int n_pat, int RC) {
   const int G = NT / lanes_of(P);
   const size_t RS = G + n_pat;
   const size_t floats = RS * 3 * P + RS * 4 + (size_t)(G + 2) * P + (G + 4) +
                         2 * W_SLOTS;
-  return floats * sizeof(float) + (size_t)(2 * G + 1) * R * P * sizeof(float2);
+  return floats * sizeof(float) + (size_t)2 * (G + 1) * RC * P * sizeof(float2);
 }
 
 // The tiling's assumptions; 0 when the shape is served.
-int check_shape(int R, int T, int P, int n_pat, int sl, int sr) {
-  if (pick(P) == nullptr || R <= 0 || n_pat < 2 || n_pat > NPAT_MAX || sl < 0 ||
-      sr < 0 || sl > P || sr + 1 > P || T - (n_pat + 1) * P <= 0 ||
-      smem_bytes(P, n_pat, R) > SMEM_MAX)
+int check_shape(int R, int T, int P, int n_pat, int sl, int sr, int RC) {
+  if (pick(P) == nullptr || R <= 0 || RC <= 0 || RC > R || n_pat < 2 ||
+      n_pat > NPAT_MAX || sl < 0 || sr < 0 || sl > P || sr + 1 > P ||
+      T - (n_pat + 1) * P <= 0 || smem_bytes(P, n_pat, RC) > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 }  // namespace
 
-// Shared memory a block of the kernel serving P takes (bytes).
-extern "C" long long sync_detect_smem_bytes(int P, int n_pat, int R) {
-  return (long long)smem_bytes(P, n_pat, R);
-}
-
-// Blocks of the kernel serving P an SM holds at once (the occupancy
-// calculator's answer), or -1 if the shape is not served.
-extern "C" int sync_detect_blocks_per_sm(int P, int n_pat, int R) {
+// Blocks of the kernel serving P an SM holds at once with RC antennas a
+// stage (the occupancy calculator's answer), or -1 if that is not served.
+extern "C" int sync_detect_blocks_per_sm(int P, int n_pat, int RC) {
   KernelFn k = pick(P);
-  if (k == nullptr || check_shape(R, (n_pat + 2) * P, P, n_pat, 0, 0) != 0) return -1;
-  const size_t smem = smem_bytes(P, n_pat, R);
+  if (k == nullptr || check_shape(RC, (n_pat + 2) * P, P, n_pat, 0, 0, RC) != 0)
+    return -1;
+  const size_t smem = smem_bytes(P, n_pat, RC);
   int n = 0;
   if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
           cudaSuccess ||
@@ -422,30 +456,25 @@ extern "C" int sync_detect_blocks_per_sm(int P, int n_pat, int R) {
   return n;
 }
 
-// Registers a thread of the kernel serving P uses, or -1.
-extern "C" int sync_detect_regs(int P) {
-  KernelFn k = pick(P);
-  cudaFuncAttributes a;
-  if (k == nullptr || cudaFuncGetAttributes(&a, k) != cudaSuccess) return -1;
-  return a.numRegs;
-}
-
 // x: complex64 [B, R, T] as interleaved float32 pairs; w: float32 [n_pat-1];
 // sm: float32 [B, n_t], n_t = T - (n_pat+1) P. Each block walks `span`
-// output rows of P samples of one stream. Launches on `stream`; returns the
-// cudaError_t of the launch, cudaErrorInvalidValue for a shape the tiling
-// does not serve (phy/ops/sync_detect.py::kernel_plan names the reason).
+// output rows of P samples of one stream and takes the antennas RC at a
+// time. Launches on `stream`; returns the cudaError_t of the launch,
+// cudaErrorInvalidValue for a shape the tiling does not serve or an RC
+// whose buffers exceed a block's shared memory (phy/ops/sync_detect.py
+// ::kernel_plan names the reason).
 extern "C" int sync_detect_sm(const void* x, const void* w, void* sm, int B,
                               int R, int T, int P, int n_pat, int sl, int sr,
-                              float thr, float mmax, int span, void* stream) {
-  if (B <= 0 || span <= 0 || check_shape(R, T, P, n_pat, sl, sr) != 0)
+                              float thr, float mmax, int RC, int span,
+                              void* stream) {
+  if (B <= 0 || span <= 0 || check_shape(R, T, P, n_pat, sl, sr, RC) != 0)
     return (int)cudaErrorInvalidValue;
   const int n_t = T - (n_pat + 1) * P;
   const int n_rows = (n_t + P - 1) / P;
   const int n_span = (n_rows + span - 1) / span;
   if ((long long)n_span * B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   KernelFn k = pick(P);
-  const size_t smem = smem_bytes(P, n_pat, R);
+  const size_t smem = smem_bytes(P, n_pat, RC);
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -453,6 +482,6 @@ extern "C" int sync_detect_sm(const void* x, const void* w, void* sm, int B,
   const int vec_out = (n_t % 4 == 0) && ((uintptr_t)sm % 16 == 0);
   k<<<n_span * B, NT, smem, (cudaStream_t)stream>>>(
       (const float2*)x, (const float*)w, (float*)sm, R, T, n_pat, sl, sr, thr,
-      mmax, n_rows, span, n_span, vec_in, vec_out);
+      mmax, RC, n_rows, span, n_span, vec_in, vec_out);
   return (int)cudaGetLastError();
 }

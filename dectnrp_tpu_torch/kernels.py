@@ -29,7 +29,8 @@ _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_seconds: float | None = None   # wall time of this process's build/load
-build_log: str = ""                  # nvcc's output (ptxas register/smem use)
+build_log: str = ""                  # nvcc's output (ptxas register/smem use),
+                                     # kept beside the library
 
 
 def _nvcc() -> str:
@@ -52,14 +53,10 @@ def _declare(lib):
     lib.bcjr_blocks_per_sm.restype = i
     lib.bcjr_posterior_cm_bf16.argtypes = [p, p, p, i, i, i, i, p]
     lib.bcjr_posterior_cm_bf16.restype = i
-    lib.sync_detect_sm.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, i, p]
+    lib.sync_detect_sm.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, i, i, p]
     lib.sync_detect_sm.restype = i
     lib.sync_detect_blocks_per_sm.argtypes = [i, i, i]
     lib.sync_detect_blocks_per_sm.restype = i
-    lib.sync_detect_regs.argtypes = [i]
-    lib.sync_detect_regs.restype = i
-    lib.sync_detect_smem_bytes.argtypes = [i, i, i]
-    lib.sync_detect_smem_bytes.restype = ctypes.c_longlong
     lib.polyphase_fir.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.polyphase_fir.restype = i
     return lib
@@ -98,7 +95,10 @@ def load():
             o.unlink()
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
+        so.with_suffix(".log").write_text(build_log)
         os.replace(tmp, so)
+    elif so.with_suffix(".log").exists():
+        build_log = so.with_suffix(".log").read_text()
     _lib = _declare(ctypes.CDLL(str(so)))
     build_seconds = time.perf_counter() - t0
     return _lib

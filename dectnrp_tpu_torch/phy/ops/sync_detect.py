@@ -95,10 +95,13 @@ def gate_tie_mask(metric: torch.Tensor, thr: float, mmax: float, sl: int,
 @dataclass(frozen=True)
 class KernelPlan:
     """The kernel's tiling of one shape: V samples on each of Q lanes make a
-    row of P; G = 256 / Q rows a sub-tile; `smem` bytes a block."""
+    row of P; G = 256 / Q rows a sub-tile; the R antennas taken RC at a time
+    in n_c stages a sub-tile; `smem` bytes a block."""
     V: int
     Q: int
     G: int
+    RC: int
+    n_c: int
     n_t: int
     n_rows: int
     smem: int
@@ -107,7 +110,9 @@ class KernelPlan:
 def kernel_plan(R: int, T: int, P: int, n_pat: int, sl: int,
                 sr: int) -> KernelPlan:
     """The kernel's tiling for x [B, R, T]; raises ValueError, with the
-    reason, on a shape it does not serve (the C entry refuses the same)."""
+    reason, on a shape it does not serve (the C entry refuses the same).
+    RC is all R where their x rows fit a block's shared memory, else the
+    fewest even stages that fit."""
     if P not in _LANES:
         raise ValueError(f"sync kernel: P = {P} is not 16 b for a DECT NR+ b "
                          "in {1, 2, 4, 8, 12, 16} (a row is V samples on 16 "
@@ -125,12 +130,12 @@ def kernel_plan(R: int, T: int, P: int, n_pat: int, sl: int,
     Q = _LANES[P]
     G = _NT // Q
     RS = G + n_pat
-    smem = (RS * 3 * P + RS * 4 + (G + 2) * P + G + 4 + 2 * _W_SLOTS) * 4 \
-        + (2 * G + 1) * R * P * 8
-    if smem > _SMEM_MAX:
-        raise ValueError(f"sync kernel: {R} antennas need {smem} bytes of "
-                         f"shared memory a block, more than {_SMEM_MAX}")
-    return KernelPlan(P // Q, Q, G, n_t, -(-n_t // P), smem)
+    rings = (RS * 3 * P + RS * 4 + (G + 2) * P + G + 4 + 2 * _W_SLOTS) * 4
+    x_bytes = 2 * (G + 1) * P * 8          # one antenna's x rows, both halves
+    n_c = -(-R // ((_SMEM_MAX - rings) // x_bytes))
+    RC = -(-R // n_c)
+    return KernelPlan(P // Q, Q, G, RC, n_c, n_t, -(-n_t // P),
+                      rings + RC * x_bytes)
 
 
 def auto_span(B: int, n_rows: int, G: int, resident: int) -> int:
@@ -148,15 +153,16 @@ def default_span(iq: torch.Tensor, P: int, n_pat: int, sl: int, sr: int) -> int:
     pl = kernel_plan(R, T, P, n_pat, sl, sr)
     dev = iq.device.index if iq.device.index is not None \
         else torch.cuda.current_device()
-    return auto_span(B, pl.n_rows, pl.G, resident_blocks(dev, P, n_pat, R))
+    return auto_span(B, pl.n_rows, pl.G, resident_blocks(dev, P, n_pat, pl.RC))
 
 
 @lru_cache(maxsize=None)
-def resident_blocks(device_index: int, P: int, n_pat: int, R: int) -> int:
-    """Blocks of the kernel the whole card holds at once for this shape."""
+def resident_blocks(device_index: int, P: int, n_pat: int, RC: int) -> int:
+    """Blocks of the kernel the whole card holds at once with RC antennas a
+    stage."""
     from ... import kernels
 
-    n = kernels.load().sync_detect_blocks_per_sm(P, n_pat, R)
+    n = kernels.load().sync_detect_blocks_per_sm(P, n_pat, RC)
     if n < 1:
         raise RuntimeError(f"sync kernel: occupancy query failed ({n})")
     return n * torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -211,13 +217,14 @@ def detect_sm_tiled(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int,
                     span_rows: int | None = None) -> torch.Tensor:
     """The kernel's computation in plain torch: sm [B, n_t] of iq complex64
     [B, R, T], block by block (each `span_rows` output rows of a stream,
-    default all), sub-tile by sub-tile of G rows, through the same rings,
-    with the kernel's order of float32 operations. Values do not depend on
-    the span: every sum is row-local."""
+    default all), sub-tile by sub-tile of G rows and antenna stage by stage,
+    through the same buffers and rings, with the kernel's order of float32
+    operations. Values do not depend on the span: every sum is row-local."""
     B, R, T = iq.shape
     n_pat = w.numel() + 1
     pl = kernel_plan(R, T, P, n_pat, sl, sr)
-    V, Q, G, n_t, n_rows = pl.V, pl.Q, pl.G, pl.n_t, pl.n_rows
+    V, Q, G, RC, n_c = pl.V, pl.Q, pl.G, pl.RC, pl.n_c
+    n_t, n_rows = pl.n_t, pl.n_rows
     span = n_rows if span_rows is None else int(span_rows)
     if span < 1:
         raise ValueError(f"detect_sm_tiled: span_rows = {span}")
@@ -246,25 +253,50 @@ def detect_sm_tiled(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int,
     n_pro = -(-(n_pat + 3) // G)       # prologue sub-tiles (the kernel's -s_min)
     for o0 in range(0, n_rows, span):
         o_end = min(o0 + span, n_rows)
-        xring = _Ring(2 * G + 1, (B, R, P, 2), dev)
+        n_it = -(-(o_end - o0) // G)
+        # x double buffer: half h, row i holds (x row, stage) xtag[h][i]
+        xbuf = torch.zeros((2, G + 1, B, RC, P, 2), dtype=f32, device=dev)
+        xtag = [[None] * (G + 1) for _ in range(2)]
+
+        def copy(s, c, h):
+            js0 = o0 + 1 + s * G + n_pat
+            r0 = c * RC
+            nr = min(RC, R - r0)
+            for i in range(G + 1):
+                if o0 - 1 <= js0 + i <= o_end + n_pat + 1:
+                    xbuf[h, i, :, :nr] = xp[:, r0:r0 + nr, js0 + i - lo]
+                    xtag[h][i] = (js0 + i, c)
+
         pring = _Ring(G + n_pat, (B, 3, P), dev)
         ptot = _Ring(G + n_pat, (B, 3), dev)
         gring = _Ring(G + 2, (B, P), dev)
         gtot = _Ring(G + 2, (B,), dev)
-        for s in range(-n_pro, -(-(o_end - o0) // G)):
+        half = 0
+        copy(-n_pro, 0, half)
+        for s in range(-n_pro, n_it):
             bs = o0 + 1 + s * G
             js = [bs + n_pat + g for g in range(G)]
-            jn = [j + 1 for j in js]
-            load = [o0 - 1 <= j <= o_end + n_pat + 1 for j in jn]
-            xring.put(jn, xp[:, :, [j - lo for j in jn]].movedim(2, 0), load)
             need = [o0 - 1 <= j <= o_end + n_pat for j in js]
-            cur = xring.get(js, need)                    # [G, B, R, P, 2]
-            nxt = xring.get(jn, need)
-            for r in range(R):
-                ax, ay = cur[:, :, r, :, 0], cur[:, :, r, :, 1]
-                cx, cy = nxt[:, :, r, :, 0], nxt[:, :, r, :, 1]
-                q = (ax * cx + ay * cy, ay * cx - ax * cy, ax * ax + ay * ay)
-                pr, pi, pw = q if r == 0 else (pr + q[0], pi + q[1], pw + q[2])
+            for c in range(n_c):
+                if c + 1 < n_c:
+                    copy(s, c + 1, half ^ 1)
+                elif s + 1 < n_it:
+                    copy(s + 1, 0, half ^ 1)
+                for g, j in enumerate(js):
+                    if need[g] and xtag[half][g:g + 2] != [(j, c), (j + 1, c)]:
+                        raise AssertionError(f"x buffer rows of row {j}, stage "
+                                             f"{c} hold {xtag[half][g:g + 2]}")
+                cur, nxt = xbuf[half, :G], xbuf[half, 1:]   # [G, B, RC, P, 2]
+                if c == 0:
+                    pr, pi, pw = (torch.zeros((G, B, P), dtype=f32, device=dev)
+                                  for _ in range(3))
+                for r in range(min(RC, R - c * RC)):
+                    ax, ay = cur[:, :, r, :, 0], cur[:, :, r, :, 1]
+                    cx, cy = nxt[:, :, r, :, 0], nxt[:, :, r, :, 1]
+                    pr = pr + (ax * cx + ay * cy)
+                    pi = pi + (ay * cx - ax * cy)
+                    pw = pw + (ax * ax + ay * ay)
+                half ^= 1
             scans = [_row_excl_scan(a, V, Q) for a in (pr, pi, pw)]
             pring.put(js, torch.stack([p for p, _ in scans], 2), need)
             ptot.put(js, torch.stack([t for _, t in scans], 2), need)
@@ -323,15 +355,12 @@ def detect_sm_tiled(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int,
 
 
 def detect_sm(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int, sr: int,
-              thr: float, mmax: float,
-              span_rows: int | None = None) -> torch.Tensor:
+              thr: float, mmax: float) -> torch.Tensor:
     """Smoothed gated metric sm [B, n_t] of iq complex64 [B, R, T].
 
     w: float32 [n_pat-1] pairwise cover weights, on iq's device.
-    CUDA tensors launch the kernel; CPU tensors run the plain twin.
-    span_rows: output rows of P samples a block walks; by default about one
-    wave of blocks over the card (`auto_span`); G (one sub-tile a block)
-    reproduces the tile size of the kernel's first version, for timing.
+    CUDA tensors launch the kernel, each block walking about one wave's
+    share of a stream (`default_span`); CPU tensors run the plain twin.
     """
     if iq.device.type == "cpu":
         return detect_sm_plain(iq, P, w, sl, sr, thr, mmax)
@@ -344,17 +373,14 @@ def detect_sm(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int, sr: int,
     B, R, T = iq.shape
     n_pat = w.numel() + 1
     pl = kernel_plan(R, T, P, n_pat, sl, sr)
-    if span_rows is None:
-        span_rows = default_span(iq, P, n_pat, sl, sr)
-    if span_rows < 1:
-        raise ValueError(f"detect_sm: span_rows = {span_rows}")
+    span = default_span(iq, P, n_pat, sl, sr)
     from ... import kernels
 
     lib = kernels.load()
     sm = torch.empty((B, pl.n_t), dtype=torch.float32, device=iq.device)
     err = lib.sync_detect_sm(torch.view_as_real(iq).data_ptr(), w.data_ptr(),
                              sm.data_ptr(), B, R, T, P, n_pat, sl, sr,
-                             float(thr), float(mmax), int(span_rows),
+                             float(thr), float(mmax), pl.RC, span,
                              kernels.stream_ptr(iq.device))
     kernels.check(err, "sync_detect_sm")
     global launches

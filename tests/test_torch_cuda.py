@@ -156,9 +156,11 @@ def test_turbo_decode_early_bf16_round_trip(dev):
 # (u, b, R, B, T, span_rows, first row of the STF-like segment): small
 # streams at every b; the shapes the kernel serves at full size (the flagship
 # step, the wall step after its 9/10 resampler, the bench's u8b16 cell, the
-# runtime's chunk of 2048 + 4 N_STF samples); b = 12 with 4 antennas; one
-# sub-tile a block (the first version's tile); and a segment whose metric
-# peak straddles a block and sub-tile boundary (span 16 rows: row 16)
+# runtime's chunk of 2048 + 4 N_STF samples); b = 12 with 4 antennas; 8
+# antennas at b = 12 and 16 and 16 at u = 8 (antennas in 2 and 4 stages);
+# one sub-tile a block (the first version's tile); and a segment whose
+# metric peak straddles a block and sub-tile boundary (span 16 rows: row 16).
+# A given span is launched through the C entry; None is the wrapper's own.
 SYNC_SHAPES = [(1, 1, 1, 3, 300 * 16 + 7, None, 5),
                (1, 2, 2, 3, 300 * 32 + 7, None, 5),
                (1, 8, 1, 3, 300 * 128 + 7, None, 5),
@@ -169,8 +171,28 @@ SYNC_SHAPES = [(1, 1, 1, 3, 300 * 16 + 7, None, 5),
                (8, 16, 1, 128, 192512, None, 5),
                (1, 1, 1, 16, 2048 + 4 * 112, None, 5),
                (1, 12, 4, 3, 200 * 192 + 5, None, 5),
+               (1, 12, 8, 3, 200 * 192 + 5, None, 5),
+               (1, 16, 8, 3, 300 * 256 + 7, None, 5),
+               (8, 16, 16, 2, 100 * 256 + 1, None, 5),
                (1, 16, 1, 64, 192512, 8, 5),
-               (1, 8, 2, 3, 100 * 128 + 3, 16, 13)]
+               (1, 8, 2, 3, 100 * 128 + 3, 16, 13),
+               (1, 16, 8, 2, 100 * 256 + 1, 16, 13)]
+
+
+def _sync_launch(x, P, w, sl, sr, thr, mmax, span):
+    """sm of the kernel through its C entry, each block walking `span`
+    rows (the wrapper always takes `default_span`)."""
+    from dectnrp_tpu_torch import kernels
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+
+    B, R, T = x.shape
+    pl = sync_detect.kernel_plan(R, T, P, w.numel() + 1, sl, sr)
+    sm = torch.empty((B, pl.n_t), device=x.device)
+    kernels.check(kernels.load().sync_detect_sm(
+        torch.view_as_real(x).data_ptr(), w.data_ptr(), sm.data_ptr(), B, R, T,
+        P, w.numel() + 1, sl, sr, thr, mmax, pl.RC, span,
+        kernels.stream_ptr(x.device)), "sync_detect_sm")
+    return sm
 
 
 @pytest.mark.parametrize("u,b,R,B,T,span,seg", SYNC_SHAPES)
@@ -193,14 +215,17 @@ def test_sync_kernel_matches_plain(dev, u, b, R, B, T, span, seg):
     w = torch.as_tensor((cover_sequence(u)[:-1] * cover_sequence(u)[1:]
                          ).astype(np.float32), device=dev)
     sl, sr, thr, mmax = 7 * b, b, 0.25, 1.5
-    if span is None:
-        span = sync_detect.default_span(x, P, w.numel() + 1, sl, sr)
     n0 = sync_detect.launches
-    got = sync_detect.detect_sm(x, P, w, sl, sr, thr, mmax, span_rows=span)
-    assert sync_detect.launches == n0 + 1
+    if span is None:
+        got = sync_detect.detect_sm(x, P, w, sl, sr, thr, mmax)
+        n0 += 1
+        span = sync_detect.default_span(x, P, w.numel() + 1, sl, sr)
+    else:
+        got = _sync_launch(x, P, w, sl, sr, thr, mmax, span)
+    assert sync_detect.launches == n0
     tiled = sync_detect.detect_sm_tiled(x, P, w, sl, sr, thr, mmax, span)
     want = sync_detect.detect_sm_plain(x, P, w, sl, sr, thr, mmax)
-    assert sync_detect.launches == n0 + 1
+    assert sync_detect.launches == n0
     metric, _, _ = sync_detect.detect_metric_plain(x, P, w)
     ok = sync_detect.gate_tie_mask(metric, thr, mmax, sl, sr, 1e-3)
     assert ok.float().mean() > 0.9
@@ -210,22 +235,23 @@ def test_sync_kernel_matches_plain(dev, u, b, R, B, T, span, seg):
 
 
 def test_sync_wrapper_rejects_bad_input(dev):
-    """Shapes the tiling does not serve raise with the reason, in the
-    wrapper and in the C entry: 16 antennas at b = 16 need more shared memory
-    than a block has; b = 3 has no lane layout; smoothing beyond one row."""
+    """Shapes the tiling does not serve raise with the reason in the
+    wrapper, and the C entry refuses them too: 16 antennas at b = 16 in one
+    stage need more shared memory than a block has (the wrapper takes them
+    in 4); more antennas a stage than the stream has; b = 3 has no lane
+    layout; smoothing beyond one row."""
     from dectnrp_tpu_torch import kernels
     from dectnrp_tpu_torch.phy.ops import sync_detect
 
     w = torch.ones(6, device=dev)
     n0 = sync_detect.launches
     x = torch.zeros((1, 16, 20 * 256), dtype=torch.complex64, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        sync_detect.detect_sm(x, 256, w, 112, 16, 0.25, 1.5)
     sm = torch.empty((1, 20 * 256 - 8 * 256), device=dev)
-    assert kernels.load().sync_detect_sm(
-        torch.view_as_real(x).data_ptr(), w.data_ptr(), sm.data_ptr(), 1, 16,
-        20 * 256, 256, 7, 112, 16, 0.25, 1.5, 8,
-        kernels.stream_ptr(x.device)) != 0
+    for R, RC in ((16, 16), (1, 2)):
+        assert kernels.load().sync_detect_sm(
+            torch.view_as_real(x).data_ptr(), w.data_ptr(), sm.data_ptr(), 1, R,
+            20 * 256, 256, 7, 112, 16, 0.25, 1.5, RC, 8,
+            kernels.stream_ptr(x.device)) != 0
     y = torch.zeros((1, 1, 20 * 48), dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError, match="16 b"):
         sync_detect.detect_sm(y, 48, w, 21, 3, 0.25, 1.5)

@@ -189,9 +189,11 @@ def _tiled_sm(x, u, b, span_rows=None):
 
 
 # (u, b, R): every DECT NR+ b the kernel serves beside b = 4, both cover
-# lengths (n_pat 7 and 9), 1 and 4 antennas; T ragged (not a whole row)
+# lengths (n_pat 7 and 9), 1 and 4 antennas, and 8 antennas at b = 12 and 16
+# (two antenna stages a sub-tile); T ragged (not a whole row)
 TILED_CASES = [(1, 1, 1), (8, 1, 4), (1, 2, 4), (8, 2, 1), (1, 8, 1),
-               (8, 8, 4), (1, 12, 4), (8, 12, 1), (1, 16, 1), (8, 16, 4)]
+               (8, 8, 4), (1, 12, 4), (8, 12, 1), (1, 16, 1), (8, 16, 4),
+               (1, 12, 8), (8, 16, 8)]
 
 
 @pytest.mark.parametrize("u,b,R", TILED_CASES)
@@ -284,14 +286,19 @@ def test_kernel_plan_refuses_what_the_tiling_cannot_serve():
     from dectnrp_tpu_torch.phy.ops.sync_detect import auto_span, kernel_plan
 
     pl = kernel_plan(1, 192512, 256, 7, 112, 16)
-    assert (pl.V, pl.Q, pl.G, pl.n_rows) == (8, 32, 8, 744)
-    assert pl.smem == 91552
+    assert (pl.V, pl.Q, pl.G, pl.RC, pl.n_c, pl.n_rows) == (8, 32, 8, 1, 1, 744)
+    assert pl.smem == 93600
     assert kernel_plan(4, 77310, 128, 7, 56, 8).V == 4
     assert kernel_plan(1, 2496, 16, 7, 7, 1).Q == 16
+    # antennas beyond what a block's shared memory holds at once are taken
+    # in even stages: every R is served
+    for R, b, n_pat, RC, n_c in ((4, 16, 7, 4, 1), (8, 16, 7, 4, 2),
+                                 (8, 12, 7, 4, 2), (16, 16, 9, 4, 4),
+                                 (7, 16, 7, 4, 2), (8, 8, 7, 8, 1)):
+        pl = kernel_plan(R, 40000, 16 * b, n_pat, 7 * b, b)
+        assert (pl.RC, pl.n_c) == (RC, n_c) and pl.smem <= 232448
     with pytest.raises(ValueError, match="16 b"):
         kernel_plan(1, 4000, 48, 7, 21, 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        kernel_plan(16, 192512, 256, 7, 112, 16)
     with pytest.raises(ValueError, match="one row"):
         kernel_plan(1, 4000, 16, 7, 17, 1)
     with pytest.raises(ValueError, match="one row"):
