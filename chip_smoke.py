@@ -20,7 +20,8 @@ kernel's launch count set to 0 just before it and read just after:
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc-builds the kernels of dectnrp_tpu_torch/csrc for sm_90a,
-     one nvcc per source, all at once;
+     one nvcc per source, all at once; registers a thread (ptxas log) and
+     blocks an SM of the sync and polyphase kernels;
   3. BCJR kernel vs its plain twin at every K of both paths, on 64
      codeblocks, on as many as a step decodes in one call and on the
      oracle's ragged 50, at rtol 1e-4, atol 1e-3 (the report
@@ -49,7 +50,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
   5. polyphase kernel vs its plain twin at the wall step's shapes (10/9 on
      [16, 4, 23,040], 9/10 on [16, 4, 85,900]), at 40/27 and at a ragged
      9/10 length, rtol 2e-5 / atol 2e-5; a 3-chunk streaming chain equal to
-     the one-shot resampler on the lag-prefixed input;
+     the one-shot resampler on the lag-prefixed input; each of these calls,
+     the chain's too, vs the tiled twin (the kernel's own blocks, tiles and
+     fma order) at the same tolerance, its bit-equal share reported;
   6. small steps on the card equal the same steps on the CPU (plain twins):
      flagship-shaped (u=1 b=1 SISO) and wall-shaped (u=1 b=1 N_TX = 4 with
      the resampler); then the flagship and the wall step, each with
@@ -79,7 +82,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      host launch gaps), and eagerly; the sync kernel at all four shapes it
      serves on a path or a cell (flagship, wall, u8b16, the runtime's chunk
      at B = 1), each beside its bound and plain twin, with its registers
-     (from the ptxas log) and blocks per SM;
+     (from the ptxas log) and blocks per SM; the polyphase kernel at the
+     wall's two calls, 80/27 up and 27/80 down on 64 rows of a wall-length
+     input, and the runtime's RX chunk (27/80, 2 rows), each beside conv1d,
+     its plain twin and its bound;
   8. torch.profiler (device activity only) over one flagship and one wall
      step: device kernels launched, their busy time and the device's idle
      share under the profiler, the top kernels by time. Details go to
@@ -205,14 +211,13 @@ def sync_work(B, R, T, P, n_pat):
             B * n_t * (R * (14 + 6 * (n_pat - 1)) + 11))
 
 
-def poly_work(mod, rows):
+def poly_work(G, L, rows, n_in, n_out):
     """(bytes, ops) of one resampler FIR call: x read once, y written once,
     the taps once; 4 flops per nonzero tap of each output's phase."""
-    G = mod.G.cpu().numpy()
-    L = mod.plan.L
+    G = G.cpu().numpy()
     nnz = (G != 0).sum(1)
-    per_row = (mod.n_out // L) * int(nnz.sum()) + int(nnz[:mod.n_out % L].sum())
-    return rows * (mod.n_in + mod.n_out) * 8 + G.size * 4, 4 * rows * per_row
+    per_row = (n_out // L) * int(nnz.sum()) + int(nnz[:n_out % L].sum())
+    return rows * (n_in + n_out) * 8 + G.size * 4, 4 * rows * per_row
 
 
 def counts():
@@ -529,15 +534,34 @@ def _sync_check(s, y, label, report):
     return err, err_t
 
 
+def poly_tiled(x, G, L, M, m0, n_out):
+    """The polyphase tiled twin walked with the kernel's block count."""
+    from dectnrp_tpu_torch.phy.ops import polyphase
+
+    return polyphase.polyphase_fir_tiled(
+        x, G, L, M, m0, n_out,
+        blocks=polyphase.resident_blocks(x.device.index, L, M, G.shape[1]))
+
+
 def phase_polyphase(wall, dev, report):
     """Kernel vs plain twin at the wall step's two calls, at 40/27 and at a
-    ragged 9/10 length; a 3-chunk streaming chain vs the one-shot."""
+    ragged 9/10 length; a 3-chunk streaming chain vs the one-shot; each
+    call also vs the tiled twin."""
     from dectnrp_tpu_torch.phy.ops.polyphase import polyphase_fir_plain
     from dectnrp_tpu_torch.phy.resampler import (ResamplerPlan, build_resampler,
                                                  build_resampler_stream,
                                                  stream_input_lag)
 
     g = torch.Generator(device=dev).manual_seed(5)
+    tiled = {}
+
+    def check_tiled(label, got, x, G, L, M, m0, n_out):
+        want = poly_tiled(x, G, L, M, m0, n_out)
+        tiled[label] = {"max_abs_err": (got - want).abs().max().item(),
+                        "bit_equal": (got == want).float().mean().item()}
+        require(torch.allclose(got, want, **POLY_TOL),
+                f"polyphase {label}: kernel vs tiled twin max |err| "
+                f"{tiled[label]['max_abs_err']}")
 
     def rand(*shape):
         return torch.randn(shape, dtype=torch.complex64, generator=g, device=dev)
@@ -558,6 +582,8 @@ def phase_polyphase(wall, dev, report):
         errs[label] = (got - want).abs().max().item()
         require(torch.allclose(got, want, **POLY_TOL),
                 f"polyphase {label}: kernel vs plain max |err| {errs[label]}")
+        check_tiled(label, got, x, mod.G, mod.plan.L, mod.plan.M, mod.m0,
+                    mod.n_out)
 
     plan, chunk = ResamplerPlan(9, 10), 10 * 2048
     st = build_resampler_stream(plan, chunk)
@@ -565,7 +591,10 @@ def phase_polyphase(wall, dev, report):
     hist = torch.zeros((B_WALL * 4, st.H), dtype=torch.complex64, device=dev)
     outs = []
     for c in range(3):
+        xp = torch.cat([hist, x[:, c * chunk:(c + 1) * chunk]], -1)
         y, hist = st(x[:, c * chunk:(c + 1) * chunk], hist)
+        check_tiled(f"stream_chunk{c}", y, xp, st.G, plan.L, plan.M, st.off,
+                    st.n_out)
         outs.append(y)
     y_st = torch.cat(outs, -1)
     lag = stream_input_lag(plan)
@@ -575,11 +604,14 @@ def phase_polyphase(wall, dev, report):
     require(torch.allclose(y_st, y_one, **POLY_TOL),
             f"polyphase stream chain vs one-shot max |err| {errs['stream_chain']}")
     report["polyphase_check"] = errs
+    report["polyphase_check_tiled"] = tiled
     print("polyphase: kernel == plain twin at " + ", ".join(
         f"{k} (max |err| {v:.3g})" for k, v in errs.items() if k != "stream_chain")
         + f"; 3-chunk stream chain == one-shot on the lag-{lag} input (max |err| "
-        f"{errs['stream_chain']:.3g}); rtol 2e-5 atol 2e-5", flush=True)
-    return max(errs.values())
+        f"{errs['stream_chain']:.3g}); == tiled twin at " + ", ".join(
+            f"{k} (max |err| {v['max_abs_err']:.3g}, bit-equal {v['bit_equal']:.6f})"
+            for k, v in tiled.items()) + "; rtol 2e-5 atol 2e-5", flush=True)
+    return max(errs.values()), max(v["max_abs_err"] for v in tiled.values())
 
 
 def _inputs(step, B, seed, dev):
@@ -725,34 +757,38 @@ def phase_profile(step, name, B, dev, gen, card, report):
                               for n, (c, ms) in top[:5]), flush=True)
 
 
-def poly_times(mod, x):
-    """Times (ms) of one resampler call: the kernel, its plain twin and the
-    conv1d yardstick by CUDA graph replay, the kernel also eagerly; and the
-    yardstick's max |err| against the kernel. The yardstick is
-    torch.nn.functional.conv1d on the real and imaginary rows, padded as
-    the FIR reads them (the padding is not timed):
-    out[c, l, g] = sum_w G[l, w] x[c, g M + w]."""
+def poly_times(x, G, L, M, m0, n_out):
+    """Times (ms) of one polyphase FIR call: the kernel, its plain twin and
+    the conv1d yardstick by CUDA graph replay, the kernel also eagerly and
+    by graph replay again; and the yardstick's max |err| against the
+    kernel. The yardstick is torch.nn.functional.conv1d on the real and
+    imaginary rows, padded as the FIR reads them (the padding is not
+    timed): out[c, l, g] = sum_w G[l, w] x[c, g M + w]."""
     import torch.nn.functional as F
 
-    from dectnrp_tpu_torch.phy.ops.polyphase import polyphase_fir_plain
+    from dectnrp_tpu_torch.phy.ops.polyphase import (polyphase_fir,
+                                                     polyphase_fir_plain)
 
-    L, M, W = mod.plan.L, mod.plan.M, mod.G.shape[1]
-    n_in, n_out, m0 = mod.n_in, mod.n_out, mod.m0
+    W, n_in = G.shape[1], x.shape[-1]
     n_frames = -(-n_out // L)
     pad_l = max(0, -m0)
     pad_r = max(0, (n_frames - 1) * M + m0 + W - n_in)
     rows = torch.view_as_real(x).movedim(-1, -2).reshape(-1, 1, n_in)
     xr = F.pad(rows, (pad_l, pad_r))[..., m0 + pad_l:].contiguous()
-    wt = mod.G[:, None, :].contiguous()
+    wt = G[:, None, :].contiguous()
     lib = F.conv1d(xr, wt, stride=M)                            # [2r, L, >=F]
     lib = lib[..., :n_frames].permute(0, 2, 1).reshape(-1, 2, n_frames * L)
     lib = torch.view_as_complex(lib[..., :n_out].movedim(-2, -1).contiguous())
-    lib_err = (lib.reshape(x.shape[:-1] + (n_out,)) - mod(x)).abs().max().item()
-    return {"ms": graph_ms(lambda: mod(x)),
+
+    def kernel():
+        return polyphase_fir(x, G, L, M, m0, n_out)
+    lib_err = (lib.reshape(x.shape[:-1] + (n_out,)) - kernel()).abs().max().item()
+    return {"ms": graph_ms(kernel),
             "plain_ms": graph_ms(
-                lambda: polyphase_fir_plain(x, mod.G, L, M, m0, n_out), reps=5),
+                lambda: polyphase_fir_plain(x, G, L, M, m0, n_out), reps=5),
             "library_ms": graph_ms(lambda: F.conv1d(xr, wt, stride=M)),
-            "eager_ms": cuda_ms(lambda: mod(x)), "library_max_abs_err": lib_err}
+            "ms_again": graph_ms(kernel),
+            "eager_ms": cuda_ms(kernel), "library_max_abs_err": lib_err}
 
 
 def main() -> int:
@@ -768,6 +804,9 @@ def main() -> int:
         bcjr_windowed_cm_bf16_plain, bcjr_windowed_cm_plain)
     from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior
     from dectnrp_tpu_torch.phy.ops import sync_detect
+    from dectnrp_tpu_torch.phy.resampler import (ResamplerPlan, _design,
+                                                 build_resampler,
+                                                 build_resampler_stream)
     from dectnrp_tpu_torch.phy.sync import build_sync
     from dectnrp_tpu_torch.sections.part3.transmission_packet_structure import (
         get_N_samples_STF)
@@ -814,11 +853,23 @@ def main() -> int:
             and sorted(report["sync_regs"]) == [1, 2, 4, 8, 12, 16],
             f"sync occupancy or register query failed: "
             f"{report['sync_blocks_per_sm']}, {report['sync_regs']}")
+    # the polyphase kernel by phases a thread tile holds (LG); blocks an SM
+    # at the ratios timed in phase 7 and 40/27
+    report["poly_regs"] = {lg: n for (lg,), n in ptxas_regs(
+        kernels.build_log, "polyphase_kernel").items()}
+    report["poly_blocks_per_sm"] = {
+        f"{L}/{M}": lib.polyphase_blocks_per_sm(L, M, _design(ResamplerPlan(L, M))[2])
+        for L, M in ((10, 9), (9, 10), (80, 27), (27, 80), (40, 27))}
+    require(min(report["poly_blocks_per_sm"].values()) >= 1
+            and sorted(report["poly_regs"]) == [1, 2, 9, 10],
+            f"polyphase occupancy or register query failed: "
+            f"{report['poly_blocks_per_sm']}, {report['poly_regs']}")
     print(f"build: csrc/*.cu -> sm_90a shared library in "
           f"{kernels.build_seconds:.1f} s; bcjr blocks per SM by Lw: "
           f"{report['bcjr_blocks_per_sm']}; sync registers by b "
-          f"{report['sync_regs']}, blocks per SM by b {report['sync_blocks_per_sm']}",
-          flush=True)
+          f"{report['sync_regs']}, blocks per SM by b {report['sync_blocks_per_sm']}; "
+          f"polyphase registers by LG {report['poly_regs']}, blocks per SM "
+          f"{report['poly_blocks_per_sm']}", flush=True)
 
     # ---- 3. BCJR kernel vs plain twin, turbo round trip
     step = make_flagship_step(FLAGSHIP_PSDEF, n_pkts=N_PKTS, snr_db=SNR_DB)
@@ -861,7 +912,7 @@ def main() -> int:
     sync_err_tiled = max(e for _, e in sync_errs)
 
     # ---- 5. polyphase kernel vs plain twin
-    poly_err = phase_polyphase(wall, dev, report)
+    poly_err, poly_err_tiled = phase_polyphase(wall, dev, report)
 
     # ---- 6. small steps card == CPU, then the two main paths, counted
     small_step_check(step1, dev, gen, "flagship-shaped (u=1 b=1 SISO, K=960)")
@@ -969,18 +1020,39 @@ def main() -> int:
     sync_eager_ms = sync_times["flagship"]["eager_ms"]
     sync_bound = (sync_times["flagship"]["bound_ms"], sync_times["flagship"]["bound_by"])
     poly = {}
-    # the packets and the noisy radio-rate stream the wall step resamples
-    x_up = wall.transmit(pw, tw)
-    x_down = wall.awgn(wall.scatter(wall.resample_up(x_up), ow), gen)
-    for label, mod, x in (("up", wall.up, x_up), ("down", wall.down, x_down)):
-        poly[label] = {**poly_times(mod, x),
-                       "bound": bound(*poly_work(mod, B_WALL * 4)),
-                       "shape": list(x.shape), "L": mod.plan.L, "M": mod.plan.M}
+    # the packets and the noisy radio-rate stream the wall step resamples;
+    # 80/27 up and 27/80 down, the resampler's widest pair (W = 49 and 143
+    # taps a phase), on 64 rows of the wall's lengths; the runtime's RX step
+    # (dectnrp_tpu/upper/runtime.py:165-167: 512 L hardware samples through
+    # the M/L stream resampler, after its history) on 2 antennas
+    x_up = wall.transmit(pw, tw).contiguous()
+    x_down = wall.awgn(wall.scatter(wall.resample_up(x_up), ow), gen).contiguous()
+    up80 = build_resampler(ResamplerPlan(80, 27), x_up.shape[-1])
+    down80 = build_resampler(ResamplerPlan(27, 80), x_down.shape[-1])
+    rt = build_resampler_stream(ResamplerPlan(27, 80), 512 * 80)
+
+    def crand(rows, n):
+        return torch.randn((rows, n), dtype=torch.complex64, generator=g,
+                           device=dev)
+    poly_shapes = (
+        ("wall_up_10/9", x_up, wall.up, wall.up.m0, wall.up.n_out),
+        ("wall_down_9/10", x_down, wall.down, wall.down.m0, wall.down.n_out),
+        ("up_80/27", crand(B_WALL * 4, up80.n_in), up80, up80.m0, up80.n_out),
+        ("down_27/80", crand(B_WALL * 4, down80.n_in), down80, down80.m0,
+         down80.n_out),
+        ("runtime_rx_27/80", crand(2, rt.H + rt.chunk_in), rt, rt.off, rt.n_out))
+    for label, x, mod, m0, n_out in poly_shapes:
+        G, L, M = mod.G, mod.plan.L, mod.plan.M
+        rows = x.numel() // x.shape[-1]
+        b_ms, b_by = bound(*poly_work(G, L, rows, x.shape[-1], n_out))
+        poly[label] = {**poly_times(x, G, L, M, m0, n_out), "bound_ms": b_ms,
+                       "bound_by": b_by, "shape": list(x.shape), "L": L, "M": M}
     # one wall step's work: the up and the down call
-    poly_sum = {k: sum(v[k] for v in poly.values())
+    wall_poly = [poly["wall_up_10/9"], poly["wall_down_9/10"]]
+    poly_sum = {k: sum(v[k] for v in wall_poly)
                 for k in ("ms", "plain_ms", "library_ms", "eager_ms")}
-    poly_bound = (sum(v["bound"][0] for v in poly.values()),
-                  "bytes" if all(v["bound"][1] == "bytes" for v in poly.values())
+    poly_bound = (sum(v["bound_ms"] for v in wall_poly),
+                  "bytes" if all(v["bound_by"] == "bytes" for v in wall_poly)
                   else "operations")
     report["kernel_ms"] = {
         **{f"bcjr_K{k}_{b}cb": t[0] for (k, b), t in bcjr_times.items()},
@@ -1011,11 +1083,11 @@ def main() -> int:
               f"({v['ms_again'] * 1e3:.1f}; {v['eager_ms'] * 1e3:.1f}) vs {v['plain_ms']:.3f} ms, "
               f"{v['bound_ms'] * 1e3:.2f} us {v['bound_by']}"
               for k, v in sync_times.items()) + "; "
-          + "; ".join(f"polyphase {v['L']}/{v['M']} {v['shape']} {v['ms']:.4f} ms "
-                      f"(eager {v['eager_ms']:.4f}) vs plain {v['plain_ms']:.3f} ms "
-                      "vs conv1d "
-                      f"{v['library_ms']:.4f} ms (bound {v['bound'][0]:.4f} ms, "
-                      f"{v['bound'][1]})" for v in poly.values()), flush=True)
+          + "; polyphase, graph replay (again; eager) vs plain, conv1d, bound: "
+          + "; ".join(f"{k} {v['shape']} {v['ms'] * 1e3:.1f} us ({v['ms_again'] * 1e3:.1f}; "
+                      f"{v['eager_ms'] * 1e3:.1f}) vs {v['plain_ms']:.3f} ms, "
+                      f"{v['library_ms'] * 1e3:.1f} us, {v['bound_ms'] * 1e3:.2f} us "
+                      f"{v['bound_by']}" for k, v in poly.items()), flush=True)
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -1062,8 +1134,12 @@ def main() -> int:
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
          "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",
          "launches": total("polyphase"), "launches_by_path": by_path("polyphase"),
-         "max_abs_err": poly_err, **poly_sum, "bound_ms": poly_bound[0],
-         "bound_by": poly_bound[1]}]}
+         "max_abs_err": poly_err, "max_abs_err_tiled": poly_err_tiled,
+         **poly_sum, "bound_ms": poly_bound[0], "bound_by": poly_bound[1],
+         "regs": report["poly_regs"], "blocks_per_sm": report["poly_blocks_per_sm"],
+         "shapes": {k: {kk: v[kk] for kk in ("ms", "eager_ms", "plain_ms",
+                                             "library_ms", "bound_ms")}
+                    for k, v in poly.items()}}]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

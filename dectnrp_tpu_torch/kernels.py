@@ -57,8 +57,11 @@ def _declare(lib):
     lib.sync_detect_sm.restype = i
     lib.sync_detect_blocks_per_sm.argtypes = [i, i, i]
     lib.sync_detect_blocks_per_sm.restype = i
-    lib.polyphase_fir.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.polyphase_fir.argtypes = [p, p, ctypes.POINTER(i), p, i, i, i, i, i, i,
+                                  i, i, p]
     lib.polyphase_fir.restype = i
+    lib.polyphase_blocks_per_sm.argtypes = [i, i, i]
+    lib.polyphase_blocks_per_sm.restype = i
     return lib
 
 

@@ -267,30 +267,69 @@ RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),
           (9, 10), (27, 40), (9, 20), (27, 80), (1, 2)]
 
 
+def _poly_check(x, taps, L, M, off, n_out):
+    """One kernel launch vs the plain twin (rtol/atol 2e-5) and vs the tiled
+    twin, walked with the kernel's own block count: the kernel sums with
+    fmaf, which the twin rounds through float64, so they agree to the same
+    tolerance and bit for bit but for a rare double rounding."""
+    from dectnrp_tpu_torch.phy.ops import polyphase
+
+    n0 = polyphase.launches
+    got = polyphase.polyphase_fir(x, taps, L, M, off, n_out)
+    assert polyphase.launches == n0 + 1
+    want = polyphase.polyphase_fir_plain(x, taps, L, M, off, n_out)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    pl = polyphase.kernel_plan(L, M, taps.shape[1])
+    resident = polyphase.resident_blocks(x.device.index or 0, L, M, taps.shape[1])
+    tiled = polyphase.polyphase_fir_tiled(x, taps, L, M, off, n_out,
+                                          blocks=resident)
+    torch.testing.assert_close(got, tiled, rtol=2e-5, atol=2e-5)
+    assert (got == tiled).float().mean().item() > 0.999
+    assert polyphase.block_count(x.numel() // x.shape[-1], n_out, L, pl,
+                                 resident) <= resident
+
+
+@pytest.mark.parametrize("os", [1, 2, 4, 8])
 @pytest.mark.parametrize("LM", RATIOS)
 @pytest.mark.parametrize("rows,n_in", [(3, 1), (2, 997), (64, 23040)])
-def test_polyphase_kernel_matches_plain(dev, LM, rows, n_in):
-    """Every ratio at a one-sample input, a ragged edge (n_in not a multiple
-    of M, several tiles) and the wall step's 10/9 shape; both the one-shot
-    frame offset m0 < 0 and a streaming offset >= 0."""
-    from dectnrp_tpu_torch.phy.ops import polyphase
+def test_polyphase_kernel_matches_plain(dev, LM, rows, n_in, os):
+    """Every ratio and oversampling factor at a one-sample input, a ragged
+    edge (n_in not a multiple of M, several tiles) and the wall step's 10/9
+    shape; both the one-shot frame offset m0 < 0 and a streaming offset
+    >= 0."""
     from dectnrp_tpu_torch.phy.resampler import ResamplerPlan, _design
 
     L, M = LM
-    G, m0, W = _design(ResamplerPlan(L, M))
+    G, m0, W = _design(ResamplerPlan(L, M, os))
     taps = torch.as_tensor(G, device=dev)
-    g = torch.Generator(device=dev).manual_seed(L * M + n_in)
+    g = torch.Generator(device=dev).manual_seed(L * M + n_in + os)
     x = torch.randn((rows, n_in), dtype=torch.complex64, generator=g, device=dev)
     for off in (m0, max(0, -m0) + m0):
-        n_out = -(-n_in * L // M)
-        n0 = polyphase.launches
-        got = polyphase.polyphase_fir(x, taps, L, M, off, n_out)
-        assert polyphase.launches == n0 + 1
-        want = polyphase.polyphase_fir_plain(x, taps, L, M, off, n_out)
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        _poly_check(x, taps, L, M, off, -(-n_in * L // M))
+
+
+@pytest.mark.parametrize("LM_tx", [(80, 27), (10, 9)])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_polyphase_runtime_chunk_matches_plain(dev, LM_tx, rows):
+    """The runtime's RX stream step (dectnrp_tpu/upper/runtime.py:165-167:
+    512 L hardware samples a step through the M/L stream resampler, after
+    its history): 27/80 and 9/10."""
+    from dectnrp_tpu_torch.phy.resampler import (ResamplerPlan,
+                                                 build_resampler_stream)
+
+    L_tx, M_tx = LM_tx
+    plan = ResamplerPlan(M_tx, L_tx)
+    st = build_resampler_stream(plan, 512 * L_tx, device=dev)
+    g = torch.Generator(device=dev).manual_seed(rows + L_tx)
+    xp = torch.randn((rows, st.H + 512 * L_tx), dtype=torch.complex64,
+                     generator=g, device=dev)
+    y, _ = st(xp[:, st.H:], xp[:, :st.H])
+    assert y.shape == (rows, 512 * M_tx)
+    _poly_check(xp, st.G, plan.L, plan.M, st.off, st.n_out)
 
 
 def test_polyphase_wrapper_rejects_bad_input(dev):
+    from dectnrp_tpu_torch import kernels
     from dectnrp_tpu_torch.phy.ops import polyphase
     from dectnrp_tpu_torch.phy.resampler import ResamplerPlan, _design
 
@@ -305,4 +344,15 @@ def test_polyphase_wrapper_rejects_bad_input(dev):
         polyphase.polyphase_fir(x.real.double(), taps, 10, 9, -11, 100)
     with pytest.raises(ValueError):
         polyphase.polyphase_fir(x, taps, 10, 3, -11, 100)
+    # a design beyond the kernel's shared memory: the plan names it before
+    # any launch, and the C entry refuses it too
+    big = torch.zeros((10, 5000), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        polyphase.polyphase_fir(x, big, 10, 9, -11, 100)
+    y = torch.empty((4, 100), dtype=torch.complex64, device=dev)
+    err = kernels.load().polyphase_fir(
+        torch.view_as_real(x).data_ptr(), big.data_ptr(), None,
+        torch.view_as_real(y).data_ptr(), 4, 90, 100, 10, 9, 5000, -11, 1,
+        kernels.stream_ptr(x.device))
+    assert err != 0
     assert polyphase.launches == n0
