@@ -53,6 +53,8 @@ def _declare(lib):
     lib.bcjr_blocks_per_sm.restype = i
     lib.bcjr_posterior_cm_bf16.argtypes = [p, p, p, i, i, i, i, p]
     lib.bcjr_posterior_cm_bf16.restype = i
+    lib.bcjr_bf16_blocks_per_sm.argtypes = [i]
+    lib.bcjr_bf16_blocks_per_sm.restype = i
     lib.sync_detect_sm.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, i, i, p]
     lib.sync_detect_sm.restype = i
     lib.sync_detect_blocks_per_sm.argtypes = [i, i, i]
@@ -118,3 +120,49 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def build_one(src: pathlib.Path, name: str):
+    """Build one kernel source (another tree's, to time against this one)
+    into its own library `_build/<name>.so` and load it; the caller declares
+    its entry points."""
+    import ctypes
+
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    so = _BUILD / f"{name}.so"
+    subprocess.run([_nvcc(), *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                    "-shared", "-o", str(so), str(src)], check=True)
+    return ctypes.CDLL(str(so))
+
+
+def graph_us(fn, reps: int = 20) -> float:
+    """Device time of one fn() call (us): CUDA events around 5 replays of a
+    CUDA graph of `reps` calls, after a warm-up on a side stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(5):
+        g.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) * 1e3 / (5 * reps)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

@@ -23,14 +23,17 @@ boundaries uniform; steps outside [0, K+3) leave the metrics unchanged.
 - `bcjr_posterior_cm_bf16` (csrc/bcjr_bf16.cu) ports `_pallas_bcjr_call_bf16`:
   bf16 state metrics, branch metrics computed in float32 and rounded to
   bf16, renormalized every 4 steps by subtracting state 0, the posterior's
-  max-difference taken in float32.
+  max-difference taken in float32. Built as the float32 kernel is (rows
+  ahead of the chain, every 8th alpha vector kept, valid positions only);
+  `bcjr_windowed_cm_bf16_ckpt` walks its order in plain torch.
 
 `turbo.turbo_decode(_early)` reach them through `impl="cuda"` /
 `impl="cuda_bf16"` (see `turbo._resolve_bcjr`; `"auto"` picks the float32
 kernel for every decode on the card that it can carry). Each wrapper
 launches its kernel for CUDA tensors and runs its plain twin for CPU
 tensors; any other device, and a window that does not fit the kernel's
-shared memory, raises.
+shared memory, raises (the bf16 wrapper refuses such a window on the CPU
+too, so both routes take the same windows).
 """
 from __future__ import annotations
 
@@ -50,6 +53,9 @@ launches_bf16 = 0        # kernel launches made by bcjr_posterior_cm_bf16
 # on sm_90, so the longest window is 227 * 8 = 1816 steps (as one window:
 # K <= 1813).
 LW_MAX = 232448 // (8 * 32 * 4) * 8
+# The bf16 kernel keeps every 8th alpha vector as four bf16 pairs (512 bytes
+# for a 32-thread block): its longest window is 454 * 8 = 3632 steps.
+LW_MAX_BF16 = 232448 // (4 * 32 * 4) * 8
 
 
 def trellis_tables():
@@ -202,6 +208,107 @@ def bcjr_windowed_cm_bf16_plain(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
     return metric[..., 1].amax(-1) - metric[..., 0].amax(-1)
 
 
+def bcjr_windowed_cm_bf16_ckpt(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
+                               Lw: int = 128, D: int = 32, C: int = 8,
+                               CH: int = 8) -> torch.Tensor:
+    """The bf16 kernel's own walk (csrc/bcjr_bf16.cu) in plain torch, window
+    by window, its codeblocks (threads) on the last axis: [K+3, B] float32
+    x2 -> posterior float32 [K, B], bit for bit
+    `bcjr_windowed_cm_bf16_plain`.
+
+    - a window with no output position (w Lw >= K) is skipped;
+    - LLR rows are taken in chunks of CH from the first valid position; a
+      row outside the range the kernel loads reads as NaN, so a row the
+      kernel never uses cannot reach an output unseen (the kernel reads 0);
+    - the forward pass runs from max(0, w Lw - D) to the window's last
+      checkpoint and keeps every C-th alpha vector (at w Lw + kC);
+    - the backward pass runs from min((w+1) Lw + D, K+3) down to w Lw in
+      chunks of CH from w Lw, in groups of C; a group with outputs takes its
+      checkpoint and recomputes the C - 1 alphas after it;
+    - renormalisation by position: after pos = 3 (mod 4) forward, after
+      pos = 0 (mod 4) backward; a chunk starts at pos = 0 (mod 4), which the
+      kernel relies on to fix the phase at compile time.
+
+    Every output position is written once (the result starts as NaN).
+    """
+    T = Lw + 2 * D
+    if T % 4 or (D + Lw) % 4:
+        raise ValueError(f"bf16 BCJR: Lw + 2D = {T} and D + Lw = {D + Lw} "
+                         "must be multiples of 4")
+    if C % 4 or CH % C:
+        raise ValueError(f"bf16 BCJR: checkpoint spacing C={C} must be a "
+                         f"multiple of 4 dividing the chunk CH={CH}")
+    tb = device_tables(trellis_tables, (), Lsys.device)
+    nxt, pred_s, pred_c = tb["nxt"], tb["pred_s"], tb["pred_c"]
+    sgn_c, sgn_z = tb["sgn_c"], tb["sgn_z"]
+    Kt, B = Lsys.shape
+    dev, bf = Lsys.device, torch.bfloat16
+    nan = torch.tensor(float("nan"), device=dev)
+    zero_state = torch.full((8,), NEG, device=dev).to(bf)
+    zero_state[0] = 0.0
+
+    def init(zero):                        # [B, 8]
+        v = zero_state if zero else torch.zeros((8,), dtype=bf, device=dev)
+        return v.expand(B, 8)
+
+    def rows(pos0, lo, hi):                # CH rows of (Lsys, Lp), [CH, B] each
+        assert pos0 % 4 == 0
+        pos = torch.arange(pos0, pos0 + CH, device=dev)
+        ok = ((pos >= lo) & (pos < hi))[:, None]
+        p = pos.clamp(0, Kt - 1)
+        return torch.where(ok, Lsys[p], nan), torch.where(ok, Lp[p], nan)
+
+    def gam(ls, lp):                       # [B] x2 -> bf16 [B, 8, 2]
+        return (0.5 * (ls[:, None, None] * sgn_c
+                       + lp[:, None, None] * sgn_z)).to(bf)
+
+    def alpha_step(a, ls, lp):
+        return (a[..., pred_s] + gam(ls, lp)[..., pred_s, pred_c]).amax(-1)
+
+    def renorm(x):
+        return x - x[..., :1]
+
+    post = torch.full((K, B), float("nan"), device=dev)
+    for w0 in range(0, Kt, Lw):
+        oe = min(w0 + Lw, K)
+        if oe <= w0:
+            continue                       # tail steps only
+        fs, be = max(0, w0 - D), min(w0 + Lw + D, Kt)
+        fe = w0 + (oe - 1 - w0) // C * C + 1
+        a, ck = init(w0 == 0), {}
+        for p in range(fs, fe, CH):
+            s, l = rows(p, fs, fe)
+            for i in range(min(CH, fe - p)):
+                k = p + i - w0
+                if k >= 0 and k % C == 0:
+                    ck[k // C] = a
+                a = alpha_step(a, s[i], l[i])
+                if (p + i) % 4 == 3:
+                    a = renorm(a)
+        b = init(w0 + Lw + D >= Kt)
+        for base in range(w0 + (be - 1 - w0) // CH * CH, w0 - 1, -CH):
+            s, l = rows(base, w0, be)
+            for j in range(CH // C - 1, -1, -1):
+                gp = base + j * C
+                if gp < oe:
+                    ar = [ck[(gp - w0) // C]]
+                    for i in range(1, C):
+                        x = alpha_step(ar[-1], s[j * C + i - 1], l[j * C + i - 1])
+                        ar.append(renorm(x) if (gp + i - 1) % 4 == 3 else x)
+                for i in range(C - 1, -1, -1):
+                    pos = gp + i
+                    if pos >= be:
+                        continue
+                    g = gam(s[j * C + i], l[j * C + i])
+                    if pos < oe:       # b holds beta_{pos+1}, ar[i] alpha_pos
+                        m = ((ar[i][..., None] + g) + b[..., nxt]).float()
+                        post[pos] = m[..., 1].amax(-1) - m[..., 0].amax(-1)
+                    b = (b[..., nxt] + g).amax(-1)
+                    if pos % 4 == 0:
+                        b = renorm(b)
+    return post
+
+
 def _check_inputs(name: str, Lsys: torch.Tensor, Lp: torch.Tensor, K: int):
     """The kernels take contiguous float32 [K+3, B] pairs on one card."""
     if Lsys.device.type != "cuda":
@@ -256,13 +363,19 @@ def bcjr_posterior_cm_bf16(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
     [K+3, B] -> float32 [K, B].
 
     CUDA tensors launch the bf16 kernel; CPU tensors run the plain twin.
+    Either way, a window of more than `LW_MAX_BF16` steps (beyond the
+    kernel's shared memory) or not in whole 4-step groups raises.
     """
+    if Lw <= 0 or D < 0 or (Lw + 2 * D) % 4 or (D + Lw) % 4:
+        raise ValueError(f"bcjr_posterior_cm_bf16: bad Lw={Lw}, D={D} (Lw + 2D "
+                         "and D + Lw must be multiples of 4)")
+    if Lw > LW_MAX_BF16:
+        raise ValueError(f"bcjr_posterior_cm_bf16: a window of Lw={Lw} steps "
+                         f"does not fit the kernel's shared memory (at most "
+                         f"{LW_MAX_BF16})")
     if Lsys.device.type == "cpu":
         return bcjr_windowed_cm_bf16_plain(Lsys, Lp, K, Lw, D)
     _check_inputs("bcjr_posterior_cm_bf16", Lsys, Lp, K)
-    if (Lw + 2 * D) % 4 or (D + Lw) % 4:
-        raise ValueError("bcjr_posterior_cm_bf16: Lw + 2D and D + Lw must be "
-                         "multiples of 4")
     from ... import kernels
 
     lib = kernels.load()

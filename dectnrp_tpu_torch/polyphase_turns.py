@@ -19,12 +19,12 @@ from __future__ import annotations
 import ctypes
 import json
 import pathlib
-import subprocess
 import sys
 
 import torch
 
 from . import kernels
+from .kernels import graph_us
 from .phy.ops import polyphase
 from .phy.resampler import (ResamplerPlan, _design, build_resampler,
                             build_resampler_stream)
@@ -32,38 +32,9 @@ from .phy.resampler import (ResamplerPlan, _design, build_resampler,
 OUT = pathlib.Path(__file__).resolve().parent.parent / "chiprun_out"
 
 
-def graph_us(fn, reps: int = 20) -> float:
-    """Device time of one fn() call (us): CUDA events around 5 replays of a
-    CUDA graph of `reps` calls, after a warm-up on a side stream."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    e0.record()
-    for _ in range(5):
-        g.replay()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) * 1e3 / (5 * reps)
-
-
-def other_library(checkout: pathlib.Path, build: pathlib.Path):
-    src = checkout / "dectnrp_tpu_torch" / "csrc" / "polyphase.cu"
-    build.mkdir(parents=True, exist_ok=True)
-    so = build / "polyphase_other.so"
-    subprocess.run([kernels._nvcc(), *kernels._ARCH, "-std=c++17", "-O3",
-                    "-Xcompiler", "-fPIC", "-shared", "-o", str(so), str(src)],
-                   check=True)
-    lib = ctypes.CDLL(str(so))
+def other_library(checkout: pathlib.Path):
+    lib = kernels.build_one(checkout / "dectnrp_tpu_torch" / "csrc" / "polyphase.cu",
+                            "polyphase_other")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.polyphase_fir.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.polyphase_fir.restype = i
@@ -76,11 +47,9 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("polyphase_turns: no CUDA device")
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = kernels.card_name()
     print(card, flush=True)
-    other = other_library(pathlib.Path(argv[0]).resolve(), kernels._BUILD)
+    other = other_library(pathlib.Path(argv[0]).resolve())
     g = torch.Generator(device=dev).manual_seed(3)
     rt = build_resampler_stream(ResamplerPlan(27, 80), 512 * 80, device=dev)
     shapes = [("wall_up_10/9", ResamplerPlan(10, 9), (16, 4, 23040), None),

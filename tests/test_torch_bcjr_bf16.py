@@ -93,3 +93,45 @@ def test_bf16_twin_needs_4_step_groups(Lw, D):
     x = torch.zeros((515, 2))
     with pytest.raises(ValueError):
         bcjr_cuda.bcjr_posterior_cm_bf16(x, x, 512, Lw, D)
+
+
+# (K, Lw, D) for the kernel's own walk: K + 3 < Lw and K + 3 = Lw (one
+# window), K a multiple of Lw (the last window holds tail steps only), the
+# oracle's K = 424 and K = 1056; Lw = 68 is not a multiple of the checkpoint
+# spacing 8, D = 0 runs no acquisition
+CKPT_CASES = [(K, Lw, D)
+              for Lw, D in ((128, 32), (64, 16), (128, 0), (68, 4))
+              for K in (Lw - 23, Lw - 3, 4 * Lw, 424, 1056)]
+
+
+@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("K,Lw,D", CKPT_CASES)
+def test_bf16_ckpt_twin_matches_plain(K, Lw, D, B):
+    """The kernel's order (valid positions only, every 8th alpha kept and
+    the rest recomputed, renormalisation by position mod 4, tail-only
+    windows skipped) gives the plain twin's bits."""
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+
+    rng = np.random.default_rng(7 * K + B)
+    Lsys = torch.as_tensor((rng.standard_normal((K + 3, B)) * 3).astype(np.float32))
+    Lp = torch.as_tensor((rng.standard_normal((K + 3, B)) * 3).astype(np.float32))
+    want = bcjr_cuda.bcjr_windowed_cm_bf16_plain(Lsys, Lp, K, Lw, D)
+    got = bcjr_cuda.bcjr_windowed_cm_bf16_ckpt(Lsys, Lp, K, Lw, D)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("Lw,D", [(None, 32), (0, 32), (128, -4)])
+def test_bf16_wrapper_refuses_windows_the_kernel_cannot_take(Lw, D):
+    """A window beyond the kernel's shared memory (`LW_MAX_BF16` steps:
+    ceil(Lw / 8) checkpoints of 512 bytes in 232,448) or an empty one raises
+    on the CPU route as on the card, and launches nothing."""
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+
+    M = bcjr_cuda.LW_MAX_BF16
+    assert -(-M // 8) * 512 <= 232448 < (-(-M // 8) + 1) * 512
+    Lw = M + 4 if Lw is None else Lw
+    x = torch.zeros((515, 2))
+    n0 = bcjr_cuda.launches_bf16
+    with pytest.raises(ValueError):
+        bcjr_cuda.bcjr_posterior_cm_bf16(x, x, 512, Lw, D)
+    assert bcjr_cuda.launches_bf16 == n0

@@ -96,8 +96,26 @@ def test_bcjr_wrapper_rejects_bad_input(dev):
     assert bcjr_cuda.launches == n0
 
 
-@pytest.mark.parametrize("K,B", [(512, 3), (1056, 2), (6016, 64), (6080, 40)])
-def test_bcjr_bf16_kernel_matches_plain(dev, K, B):
+# (K, B, Lw, D) for the bf16 kernel: every shape it is timed at (the
+# flagship's K = 6016 x 832 and 6080 x 192, 64 codeblocks at four K, the FEC
+# oracle's ten first-transmission decodes of 50); ragged B (50, 33, 1); a
+# last window of tail steps only (K a multiple of Lw); one window (K + 3 < Lw,
+# K + 3 = Lw); and the windows (64, 16), (128, 0), (68, 4) (Lw = 68 not a
+# multiple of the checkpoint spacing)
+BF16_ORACLE_K = (424, 848, 1280, 1696, 2560, 3392, 3840, 4224, 5120, 5632)
+BCJR_BF16_SHAPES = (
+    [(6016, 832, 128, 32), (6080, 192, 128, 32)]
+    + [(K, 64, 128, 32) for K in (1056, 5632, 6016, 6080)]
+    + [(K, 50, 128, 32) for K in BF16_ORACLE_K]
+    + [(512, 3, 128, 32), (1056, 2, 128, 32), (6080, 40, 128, 32),
+       (5632, 33, 128, 32), (424, 1, 128, 32), (100, 5, 128, 32),
+       (125, 33, 128, 32)]
+    + [(K, B, Lw, D) for Lw, D in ((64, 16), (128, 0), (68, 4))
+       for K, B in ((1056, 33), (4 * Lw, 1), (Lw - 3, 50))])
+
+
+@pytest.mark.parametrize("K,B,Lw,D", BCJR_BF16_SHAPES)
+def test_bcjr_bf16_kernel_matches_plain(dev, K, B, Lw, D):
     """The bf16 kernel rounds as its twin does: bit for bit."""
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
 
@@ -105,13 +123,14 @@ def test_bcjr_bf16_kernel_matches_plain(dev, K, B):
     Lsys = torch.randn((K + 3, B), generator=g, device=dev) * 3
     Lp = torch.randn((K + 3, B), generator=g, device=dev) * 3
     n0 = bcjr_cuda.launches_bf16
-    got = bcjr_cuda.bcjr_posterior_cm_bf16(Lsys, Lp, K)
+    got = bcjr_cuda.bcjr_posterior_cm_bf16(Lsys, Lp, K, Lw, D)
     assert bcjr_cuda.launches_bf16 == n0 + 1
-    want = bcjr_cuda.bcjr_windowed_cm_bf16_plain(Lsys, Lp, K)
+    want = bcjr_cuda.bcjr_windowed_cm_bf16_plain(Lsys, Lp, K, Lw, D)
     assert torch.equal(got, want), (got - want).abs().max().item()
 
 
 def test_bcjr_bf16_wrapper_rejects_bad_input(dev):
+    from dectnrp_tpu_torch import kernels
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
 
     x = torch.zeros((515, 4), device=dev)
@@ -124,7 +143,31 @@ def test_bcjr_bf16_wrapper_rejects_bad_input(dev):
         bcjr_cuda.bcjr_posterior_cm_bf16(x, x, 600)
     with pytest.raises(ValueError):
         bcjr_cuda.bcjr_posterior_cm_bf16(x, x, 512, Lw=126)
+    with pytest.raises(ValueError):
+        bcjr_cuda.bcjr_posterior_cm_bf16(x, x, 512, Lw=128, D=-4)
+    # a window whose alpha checkpoints exceed a block's shared memory; the
+    # wrapper raises (no fallback), the C entry refuses it too
+    M = bcjr_cuda.LW_MAX_BF16
+    with pytest.raises(ValueError):
+        bcjr_cuda.bcjr_posterior_cm_bf16(x, x, 512, Lw=M + 4, D=0)
     assert bcjr_cuda.launches_bf16 == n0
+    lib = kernels.load()
+    y = torch.empty((512, 4), device=dev)
+    assert lib.bcjr_posterior_cm_bf16(x.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                      512, 4, M + 8, 0,
+                                      kernels.stream_ptr(dev)) != 0
+
+
+def test_bcjr_bf16_blocks_per_sm(dev):
+    """The occupancy query: blocks an SM at the oracle's window and at the
+    longest window, -1 beyond it."""
+    from dectnrp_tpu_torch import kernels
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+
+    lib = kernels.load()
+    assert lib.bcjr_bf16_blocks_per_sm(128) >= 1
+    assert lib.bcjr_bf16_blocks_per_sm(bcjr_cuda.LW_MAX_BF16) >= 1
+    assert lib.bcjr_bf16_blocks_per_sm(bcjr_cuda.LW_MAX_BF16 + 8) == -1
 
 
 def test_turbo_decode_early_bf16_round_trip(dev):
