@@ -21,7 +21,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc-builds the kernels of dectnrp_tpu_torch/csrc for sm_90a,
      one nvcc per source, all at once; registers a thread (ptxas log) and
-     blocks an SM of the sync and polyphase kernels;
+     blocks an SM of the bf16 BCJR, sync and polyphase kernels;
   3. BCJR kernel vs its plain twin at every K of both paths, on 64
      codeblocks, on as many as a step decodes in one call and on the
      oracle's ragged 50, at rtol 1e-4, atol 1e-3 (the report
@@ -35,7 +35,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      must return the sent bits;
   3b. bf16 BCJR kernel vs its plain twin, bit for bit (max |err| 0), at
      K = 1056/5632/6016/6080 x 64, at the flagship's K = 6016 x 832 and
-     6080 x 192 and at K = 5632 x 50; turbo_decode(impl="cuda_bf16") at
+     6080 x 192 and at the FEC oracle's ten first-transmission decodes
+     (ORACLE_K x 50, window 128); turbo_decode(impl="cuda_bf16") at
      K = 6144 x 4 returns the sent bits from clean +-4 LLRs (2 iterations)
      and the float32 kernel's bits at sigma 1.0 (4 iterations);
   4. sync-detection kernel vs its plain twin at the flagship shape (b = 16),
@@ -68,14 +69,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      first-transmission softbuffers decoded by turbo_decode_early with
      impl "cuda" and "cuda_bf16" (window 128, 8 iterations at most) give
      the same crc_ok packet for packet at w - 4 and w + 2 (the
-     disagreements at w are recorded); both kernels launched on the path;
+     disagreements at w are recorded; their time, kernel_decode_s, is
+     reported per MCS); the oracle's codeblock sizes equal ORACLE_K; both
+     kernels launched on the path;
   7. times with CUDA events / synchronized host clocks: each step's median
      over 5 steps, its realtime multiple B*T / step time / radio rate,
      per-stage times, and each kernel next to its plain twin, its bound on
      the card and, where one PyTorch call computes the same function, that
      call (conv1d for the polyphase FIR). The BCJR calls (float32 and
-     bf16 at K = 6016 x 832, in turns on the same inputs; the float32
-     kernel also at each alpha checkpoint spacing 1, 2, 4, 8, and as one
+     bf16 at K = 6016 x 832, in turns on the same inputs; the bf16 kernel
+     at every shape of phase 3b, each in turns with the float32 kernel
+     (bf16, f32, bf16, f32) beside its bound; the float32 kernel as one
      window at the PCC's and the oracle's shapes beside
      turbo._bcjr_posterior) and the sync and polyphase calls, tens to
      hundreds of microseconds, by CUDA events around CUDA-graph replays (no
@@ -101,7 +105,6 @@ import json
 import pathlib
 import re
 import statistics
-import subprocess
 import sys
 import time
 from collections import Counter
@@ -121,6 +124,10 @@ PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 # BF16 non-tensor 133.8 TFLOP/s on the SXM part)
 PEAK_BF16X2 = 2 * PEAK_FP32
 FEC_N, FEC_SNR_OFFSETS = 50, (-4.0, 0.0, 2.0)
+# the oracle's codeblock size for MCS 0-9 (one codeblock a transport block:
+# TB 400 ... 5608 bits plus CRC24, rounded up to a QPP size); phase 6b holds
+# the oracle's plans to it
+ORACLE_K = (424, 848, 1280, 1696, 2560, 3392, 3840, 4224, 5120, 5632)
 POLY_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
@@ -181,9 +188,10 @@ def bound(nbytes, ops, peak_ops=PEAK_FP32):
 
 def ptxas_regs(log, kernel):
     """{(template arguments): registers a thread} of each instance of
-    `kernel` in nvcc's -Xptxas -v log (instances templated on ints)."""
+    `kernel` in nvcc's -Xptxas -v log (instances templated on ints; () for
+    a kernel that is not a template)."""
     found = re.findall(
-        rf"Compiling entry function '[^']*{kernel}I((?:Li\d+E)+)E[^']*'.*?"
+        rf"Compiling entry function '[^']*{kernel}(?:I((?:Li\d+E)+)E)?[^']*'.*?"
         r"Used (\d+) registers", log, flags=re.S)
     return {tuple(int(a) for a in re.findall(r"Li(\d+)E", args)): int(n)
             for args, n in found}
@@ -336,13 +344,13 @@ def phase_bcjr(dev, report, main_shapes):
 
 def phase_bcjr_bf16(dev, report, main_shapes):
     """bf16 kernel vs its plain twin, bit for bit, on 64 codeblocks per K,
-    at `main_shapes` and at the oracle's K = 5632 x 50; then the turbo
-    decoder's decisions through it at K = 6144 x 4."""
+    at `main_shapes` and at the oracle's ten shapes (ORACLE_K x 50); then
+    the turbo decoder's decisions through it at K = 6144 x 4."""
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
     from dectnrp_tpu_torch.phy.fec.turbo import turbo_decode, turbo_encode
 
     shapes = [(K, 64) for K in (1056, 5632, 6016, 6080)]
-    shapes += [*main_shapes.items(), (5632, FEC_N)]
+    shapes += [*main_shapes.items(), *((K, FEC_N) for K in ORACLE_K)]
     errs = {}
     for K, Bc in shapes:
         g = torch.Generator(device=dev).manual_seed(K + Bc)
@@ -421,6 +429,9 @@ def phase_fec_awgn(dev, card, report):
             require(i == 1 or n_dis == 0, f"fec_awgn MCS {mcs} at {snr:g} dB: "
                     f"bf16 and float32 kernel decodes disagree on {n_dis} packets")
 
+        require(tuple(plan.cb_K) == (ORACLE_K[mcs],),
+                f"fec_awgn MCS {mcs}: codeblocks {plan.cb_K}, expected "
+                f"({ORACLE_K[mcs]},)")
         rec = fec_awgn.sweep(mcs, snrs, FEC_N, 3, dev, on_point=on_point)
         per = [rec["result"][f"PER_retx{t}"] for t in range(4)]
         require(per[0][2] <= 0.1, f"fec_awgn MCS {mcs}: PER_retx0 {per[0][2]} "
@@ -441,7 +452,8 @@ def phase_fec_awgn(dev, card, report):
                   f"{s:g} dB " + "/".join(f"{per[t][i]:.2f}" for t in range(4))
                   for i, s in enumerate(snrs))
               + f"; bf16 vs float32 kernel disagreements {cmp['disagree']}; "
-              f"oracle {res[mcs]['oracle_s']:.1f} s", flush=True)
+              f"oracle {res[mcs]['oracle_s']:.1f} s, kernel decodes "
+              f"{cmp['s']:.3f} s", flush=True)
     torch.cuda.synchronize()
     launches = counts()
     require(launches["bcjr"] > 0 and launches["bcjr_bf16"] > 0,
@@ -817,9 +829,7 @@ def main() -> int:
     report = {}
 
     # ---- 1. device
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = kernels.card_name()
     print(card, flush=True)
     report["card"] = card
     report["torch"] = torch.__version__
@@ -835,6 +845,13 @@ def main() -> int:
                                     for Lw in (128, 59, 99, 427)}
     require(min(report["bcjr_blocks_per_sm"].values()) >= 1,
             f"bcjr occupancy query failed: {report['bcjr_blocks_per_sm']}")
+    # the bf16 BCJR: registers a thread (ptxas), blocks an SM at window 128
+    report["bcjr_bf16_regs"] = ptxas_regs(kernels.build_log,
+                                          "bcjr_bf16_kernel").get(())
+    report["bcjr_bf16_blocks_per_sm"] = lib.bcjr_bf16_blocks_per_sm(128)
+    require(report["bcjr_bf16_regs"] and report["bcjr_bf16_blocks_per_sm"] >= 1,
+            f"bcjr_bf16 register or occupancy query failed: "
+            f"{report['bcjr_bf16_regs']}, {report['bcjr_bf16_blocks_per_sm']}")
     # the sync kernel by b: registers a thread (ptxas), blocks an SM at
     # R = 1, at the wall's R = 4, b = 8, at u = 8 and with 8 antennas at b = 16
     # (two stages of 4)
@@ -866,7 +883,10 @@ def main() -> int:
             f"{report['poly_blocks_per_sm']}, {report['poly_regs']}")
     print(f"build: csrc/*.cu -> sm_90a shared library in "
           f"{kernels.build_seconds:.1f} s; bcjr blocks per SM by Lw: "
-          f"{report['bcjr_blocks_per_sm']}; sync registers by b "
+          f"{report['bcjr_blocks_per_sm']}; bcjr_bf16 "
+          f"{report['bcjr_bf16_regs']} registers, "
+          f"{report['bcjr_bf16_blocks_per_sm']} blocks per SM at Lw 128; "
+          f"sync registers by b "
           f"{report['sync_regs']}, blocks per SM by b {report['sync_blocks_per_sm']}; "
           f"polyphase registers by LG {report['poly_regs']}, blocks per SM "
           f"{report['poly_blocks_per_sm']}", flush=True)
@@ -1000,6 +1020,21 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by}
     # the same work counted at the bf16x2 rate (bytes bind either way)
     bf16_bound = bound(*bcjr_work(K, flag_shapes[K]), peak_ops=PEAK_BF16X2)
+    # the bf16 kernel at every shape it serves (the flagship's two decodes,
+    # 64 codeblocks at four K, the oracle's ten), in turns with the float32
+    # kernel on the same inputs, window 128, D = 32
+    bf16_shapes = {}
+    for Kc, Bc in (*flag_shapes.items(), *((k, 64) for k in (1056, 5632, 6016, 6080)),
+                   *((k, FEC_N) for k in ORACLE_K)):
+        Lsys, Lp = bcjr_llrs(Kc, Bc, g, dev)
+        b_ms, b_by = bound(*bcjr_work(Kc, Bc), peak_ops=PEAK_BF16X2)
+        t = [graph_ms(lambda: fn(Lsys, Lp, Kc)) for fn in (
+            bcjr_posterior_cm_bf16, bcjr_posterior_cm, bcjr_posterior_cm_bf16,
+            bcjr_posterior_cm)]
+        bf16_shapes[f"K{Kc}_{Bc}cb"] = {"ms": t[0], "ms_again": t[2],
+                                        "bcjr_ms": t[1], "bcjr_ms_again": t[3],
+                                        "bound_ms": b_ms, "bound_by": b_by}
+    bf16_graph_ms = bf16_shapes[f"K{K}_{flag_shapes[K]}cb"]["ms"]
     sync_times = {}
     for label, s, ys in (("flagship", step.sync, y), ("wall", wall.sync, yw),
                          ("u8b16", s8, y8), ("runtime_B1", s_rt, y_rt[:1])):
@@ -1062,6 +1097,7 @@ def main() -> int:
         f"bcjr_K{K}_{flag_shapes[K]}cb_repeat": f32_ms_2,
         f"graph_replay_K{K}_{flag_shapes[K]}cb": bcjr_graph,
         "bcjr_one_window": one_window,
+        "bcjr_bf16": bf16_shapes,
         "sync": sync_times,
         "polyphase": poly}
     print(f"[{card}] kernels (CUDA events): "
@@ -1073,6 +1109,12 @@ def main() -> int:
           f"{bf16_bound[0]:.4f} ms, {bf16_bound[1]}); by graph replay at K={K} x "
           f"{flag_shapes[K]}, in turns: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in bcjr_graph.items())
+          + "; bcjr_bf16 by graph replay (again) vs bcjr in turns (again), "
+          "bound: " + "; ".join(
+              f"{k} {v['ms'] * 1e3:.1f} us ({v['ms_again'] * 1e3:.1f}) vs "
+              f"{v['bcjr_ms'] * 1e3:.1f} us ({v['bcjr_ms_again'] * 1e3:.1f}), "
+              f"{v['bound_ms'] * 1e3:.2f} us {v['bound_by']}"
+              for k, v in bf16_shapes.items())
           + "; bcjr as one window, graph replay "
           "(eager) vs turbo._bcjr_posterior, bound: "
           + "; ".join(f"{k} {v['ms']:.4f} ms ({v['eager_ms']:.4f}) vs "
@@ -1113,11 +1155,15 @@ def main() -> int:
          "library_ms": None, "one_window": one_window},
         {"name": "bcjr_posterior_cm_bf16", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
-         "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:187",
+         "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:188",
          "launches": total("bcjr_bf16"), "launches_by_path": by_path("bcjr_bf16"),
-         "max_abs_err": bf16_err, "ms": bf16_ms, "plain_ms": bf16_plain_ms,
+         "max_abs_err": bf16_err, "ms": bf16_graph_ms, "eager_ms": bf16_ms,
+         "plain_ms": bf16_plain_ms,
          "bound_ms": bf16_bound[0], "bound_by": bf16_bound[1],
-         "library_ms": None},
+         "library_ms": None, "regs": report["bcjr_bf16_regs"],
+         "blocks_per_sm": report["bcjr_bf16_blocks_per_sm"],
+         "shapes": {k: {kk: v[kk] for kk in ("ms", "bcjr_ms", "bound_ms")}
+                    for k, v in bf16_shapes.items()}},
         {"name": "sync_detect_sm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",
          "replaces": "dectnrp_tpu/phy/ops/sync_detect.py:62",

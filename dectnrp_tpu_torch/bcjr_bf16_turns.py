@@ -10,15 +10,20 @@ two decodes, 64 codeblocks at four K, the FEC oracle's ten
 first-transmission decodes of 50 codeblocks), on the same random inputs, in
 the order other, this, this, other. Each output is held to the plain twin
 bit for bit; each call is timed by CUDA events around CUDA-graph replays.
-Prints the card's name and power limit and one JSON line, also written to
-chiprun_out/bcjr_bf16_turns.json. Needs a CUDA card.
+Also counts the SASS instructions of each tree's bcjr_bf16_kernel by opcode
+(`cuobjdump -sass` on the built libraries; static counts, the loops
+unrolled by chunk). Prints the card's name and power limit and one JSON
+line, also written to chiprun_out/bcjr_bf16_turns.json. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import pathlib
+import re
+import subprocess
 import sys
+from collections import Counter
 
 import torch
 
@@ -46,6 +51,19 @@ def other_library(checkout: pathlib.Path):
     return lib
 
 
+def sass_counts(lib) -> dict:
+    """{opcode: count} of bcjr_bf16_kernel's SASS in a loaded library, with
+    "total"; opcode modifiers dropped (HFMA2.BF16_V2 counts as HFMA2)."""
+    tool = pathlib.Path(kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib._name], capture_output=True,
+                          text=True, check=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if f.split("\n", 1)[0].find("bcjr_bf16_kernel") >= 0)
+    ops = Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T\d]+\s+)?([A-Z][A-Z0-9]*)",
+                             body))
+    return {"total": sum(ops.values()), **dict(ops.most_common())}
+
+
 def main(argv: list[str]) -> int:
     if len(argv) != 1:
         raise SystemExit(__doc__)
@@ -58,7 +76,12 @@ def main(argv: list[str]) -> int:
             "this": kernels.load()}
     g = torch.Generator(device=dev).manual_seed(4)
     report = {"card": card, "order": ["other", "this", "this", "other"],
-              "window": [128, 32], "shapes": {}}
+              "window": [128, 32],
+              "sass": {name: sass_counts(lib) for name, lib in libs.items()},
+              "shapes": {}}
+    for name, ops in report["sass"].items():
+        print(f"{name} bcjr_bf16_kernel SASS: " + ", ".join(
+            f"{k} {v}" for k, v in list(ops.items())[:16]), flush=True)
     for K, B in SHAPES:
         Lsys = torch.randn((K + 3, B), generator=g, device=dev) * 3
         Lp = torch.randn((K + 3, B), generator=g, device=dev) * 3

@@ -41,7 +41,10 @@
 //  1. No device-memory load sits in the chain. The LLR rows are fetched
 //     through registers a chunk of CH = 8 rows (two renormalisation groups)
 //     ahead, in both passes; a row's branch metrics are packed into bf16
-//     pairs from the loaded values, off the chain.
+//     pairs from the loaded values, off the chain. Deeper prefetch (a ring
+//     of 4 to 8 chunks in shared memory, filled by cp.async) was timed
+//     about 5% faster at best and is not used: the loads are not what is
+//     left.
 //  2. Alpha checkpoints: the forward pass keeps every C-th alpha vector as
 //     four bf16 pairs, laid out [checkpoint][pair][thread] (a warp's access
 //     is 32 consecutive words, one wavefront); the backward pass reloads a
@@ -53,6 +56,11 @@
 //  3. Valid steps only: the forward pass runs from max(0, w Lw - D) to the
 //     window's last checkpoint, the backward pass from min((w+1) Lw + D,
 //     K+3) down; a window that holds only tail steps exits at once.
+// Measured on an H100 (700 W) by bcjr_bf16_turns, graph replay, window 128:
+// 67.8 us at K = 6016 x 832 (the earlier design, every alpha of a window in
+// shared memory and a load in each step of the chain: 430 us); 35-37 us at
+// 50 to 192 codeblocks, under one block an SM, where one thread's chain is
+// the time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

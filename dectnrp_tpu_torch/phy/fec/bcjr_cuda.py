@@ -209,19 +209,18 @@ def bcjr_windowed_cm_bf16_plain(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
 
 
 def bcjr_windowed_cm_bf16_ckpt(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
-                               Lw: int = 128, D: int = 32, C: int = 8,
-                               CH: int = 8) -> torch.Tensor:
+                               Lw: int = 128, D: int = 32) -> torch.Tensor:
     """The bf16 kernel's own walk (csrc/bcjr_bf16.cu) in plain torch, window
     by window, its codeblocks (threads) on the last axis: [K+3, B] float32
     x2 -> posterior float32 [K, B], bit for bit
     `bcjr_windowed_cm_bf16_plain`.
 
     - a window with no output position (w Lw >= K) is skipped;
-    - LLR rows are taken in chunks of CH from the first valid position; a
+    - LLR rows are taken in chunks of CH = 8 from the first valid position; a
       row outside the range the kernel loads reads as NaN, so a row the
       kernel never uses cannot reach an output unseen (the kernel reads 0);
     - the forward pass runs from max(0, w Lw - D) to the window's last
-      checkpoint and keeps every C-th alpha vector (at w Lw + kC);
+      checkpoint and keeps every C-th alpha vector (C = 8, at w Lw + kC);
     - the backward pass runs from min((w+1) Lw + D, K+3) down to w Lw in
       chunks of CH from w Lw, in groups of C; a group with outputs takes its
       checkpoint and recomputes the C - 1 alphas after it;
@@ -235,9 +234,7 @@ def bcjr_windowed_cm_bf16_ckpt(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
     if T % 4 or (D + Lw) % 4:
         raise ValueError(f"bf16 BCJR: Lw + 2D = {T} and D + Lw = {D + Lw} "
                          "must be multiples of 4")
-    if C % 4 or CH % C:
-        raise ValueError(f"bf16 BCJR: checkpoint spacing C={C} must be a "
-                         f"multiple of 4 dividing the chunk CH={CH}")
+    C = CH = 8                             # as in csrc/bcjr_bf16.cu
     tb = device_tables(trellis_tables, (), Lsys.device)
     nxt, pred_s, pred_c = tb["nxt"], tb["pred_s"], tb["pred_c"]
     sgn_c, sgn_z = tb["sgn_c"], tb["sgn_z"]
