@@ -10,7 +10,9 @@ loaded. Pointers and the CUDA stream pass as `ctypes.c_void_p`; every entry
 point returns its `cudaError_t` (0 = success).
 
 Nothing is imported or built until the first kernel launch: the CPU tests
-import every module of the port and never come here.
+import every module of the port and never come here. `build_one`,
+`graph_us` and `card_name` serve the tools that time this tree's kernels
+against another tree's (`*_turns.py`).
 """
 from __future__ import annotations
 
