@@ -34,9 +34,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      turbo_decode_early round trip of 64 CRC-carrying codeblocks per K that
      must return the sent bits;
   3b. bf16 BCJR kernel vs its plain twin, bit for bit (max |err| 0), at
-     K = 1056/5632/6016/6080 x 64, at the flagship's K = 6016 x 832 and
-     6080 x 192 and at the FEC oracle's ten first-transmission decodes
-     (ORACLE_K x 50, window 128); turbo_decode(impl="cuda_bf16") at
+     every shape bcjr_bf16_turns.SHAPES lists: K = 1056/5632/6016/6080 x 64,
+     the flagship's K = 6016 x 832 and 6080 x 192 and the FEC oracle's ten
+     first-transmission decodes (K from fec_awgn.codeblock_K x 50, window
+     128); turbo_decode(impl="cuda_bf16") at
      K = 6144 x 4 returns the sent bits from clean +-4 LLRs (2 iterations)
      and the float32 kernel's bits at sigma 1.0 (4 iterations);
   4. sync-detection kernel vs its plain twin at the flagship shape (b = 16),
@@ -70,8 +71,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      impl "cuda" and "cuda_bf16" (window 128, 8 iterations at most) give
      the same crc_ok packet for packet at w - 4 and w + 2 (the
      disagreements at w are recorded; their time, kernel_decode_s, is
-     reported per MCS); the oracle's codeblock sizes equal ORACLE_K; both
-     kernels launched on the path;
+     reported per MCS); both kernels launched on the path;
   7. times with CUDA events / synchronized host clocks: each step's median
      over 5 steps, its realtime multiple B*T / step time / radio rate,
      per-stage times, and each kernel next to its plain twin, its bound on
@@ -124,10 +124,6 @@ PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 # BF16 non-tensor 133.8 TFLOP/s on the SXM part)
 PEAK_BF16X2 = 2 * PEAK_FP32
 FEC_N, FEC_SNR_OFFSETS = 50, (-4.0, 0.0, 2.0)
-# the oracle's codeblock size for MCS 0-9 (one codeblock a transport block:
-# TB 400 ... 5608 bits plus CRC24, rounded up to a QPP size); phase 6b holds
-# the oracle's plans to it
-ORACLE_K = (424, 848, 1280, 1696, 2560, 3392, 3840, 4224, 5120, 5632)
 POLY_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
@@ -149,24 +145,6 @@ def cuda_ms(fn, reps=10, warm=2):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
-
-
-def graph_ms(fn, reps=20):
-    """Device time of one fn() call by CUDA events around replays of a CUDA
-    graph of reps calls: unlike eager back-to-back calls, no host launch
-    overhead between launches (a call of tens of microseconds is otherwise
-    timed at the Python wrapper's rate)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, capture_error_mode="relaxed"):
-        for _ in range(reps):
-            fn()
-    return cuda_ms(g.replay, reps=5, warm=1) / reps
 
 
 def host_ms(fn):
@@ -343,14 +321,15 @@ def phase_bcjr(dev, report, main_shapes):
 
 
 def phase_bcjr_bf16(dev, report, main_shapes):
-    """bf16 kernel vs its plain twin, bit for bit, on 64 codeblocks per K,
-    at `main_shapes` and at the oracle's ten shapes (ORACLE_K x 50); then
-    the turbo decoder's decisions through it at K = 6144 x 4."""
+    """bf16 kernel vs its plain twin, bit for bit, at every shape it is
+    timed at (bcjr_bf16_turns.SHAPES: 64 codeblocks at four K, the
+    flagship's two decodes, the oracle's ten) and at `main_shapes`; then the
+    turbo decoder's decisions through it at K = 6144 x 4."""
+    from dectnrp_tpu_torch.bcjr_bf16_turns import SHAPES
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
     from dectnrp_tpu_torch.phy.fec.turbo import turbo_decode, turbo_encode
 
-    shapes = [(K, 64) for K in (1056, 5632, 6016, 6080)]
-    shapes += [*main_shapes.items(), *((K, FEC_N) for K in ORACLE_K)]
+    shapes = dict.fromkeys([*SHAPES, *main_shapes.items()])
     errs = {}
     for K, Bc in shapes:
         g = torch.Generator(device=dev).manual_seed(K + Bc)
@@ -429,9 +408,6 @@ def phase_fec_awgn(dev, card, report):
             require(i == 1 or n_dis == 0, f"fec_awgn MCS {mcs} at {snr:g} dB: "
                     f"bf16 and float32 kernel decodes disagree on {n_dis} packets")
 
-        require(tuple(plan.cb_K) == (ORACLE_K[mcs],),
-                f"fec_awgn MCS {mcs}: codeblocks {plan.cb_K}, expected "
-                f"({ORACLE_K[mcs]},)")
         rec = fec_awgn.sweep(mcs, snrs, FEC_N, 3, dev, on_point=on_point)
         per = [rec["result"][f"PER_retx{t}"] for t in range(4)]
         require(per[0][2] <= 0.1, f"fec_awgn MCS {mcs}: PER_retx0 {per[0][2]} "
@@ -778,6 +754,7 @@ def poly_times(x, G, L, M, m0, n_out):
     timed): out[c, l, g] = sum_w G[l, w] x[c, g M + w]."""
     import torch.nn.functional as F
 
+    from dectnrp_tpu_torch.kernels import graph_us
     from dectnrp_tpu_torch.phy.ops.polyphase import (polyphase_fir,
                                                      polyphase_fir_plain)
 
@@ -795,11 +772,11 @@ def poly_times(x, G, L, M, m0, n_out):
     def kernel():
         return polyphase_fir(x, G, L, M, m0, n_out)
     lib_err = (lib.reshape(x.shape[:-1] + (n_out,)) - kernel()).abs().max().item()
-    return {"ms": graph_ms(kernel),
-            "plain_ms": graph_ms(
+    return {"ms": 1e-3 * graph_us(kernel),
+            "plain_ms": 1e-3 * graph_us(
                 lambda: polyphase_fir_plain(x, G, L, M, m0, n_out), reps=5),
-            "library_ms": graph_ms(lambda: F.conv1d(xr, wt, stride=M)),
-            "ms_again": graph_ms(kernel),
+            "library_ms": 1e-3 * graph_us(lambda: F.conv1d(xr, wt, stride=M)),
+            "ms_again": 1e-3 * graph_us(kernel),
             "eager_ms": cuda_ms(kernel), "library_max_abs_err": lib_err}
 
 
@@ -808,7 +785,9 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU")
     from dectnrp_tpu_torch.sections.part3.packet_sizes import PacketSizesDef
 
+    from dectnrp_tpu_torch import bcjr_bf16_turns as bf16_turns
     from dectnrp_tpu_torch import kernels
+    from dectnrp_tpu_torch.kernels import graph_us
     from dectnrp_tpu_torch.loopback import (FLAGSHIP_PSDEF, WALL_PSDEF, hw_rate,
                                             make_flagship_step, make_wall_step)
     from dectnrp_tpu_torch.phy.fec.bcjr_cuda import (
@@ -997,9 +976,10 @@ def main() -> int:
             f32_ms_2 = cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc))
             # device times without the wrapper's host gaps, in turns again
             bcjr_graph = {
-                "bcjr_bf16": graph_ms(lambda: bcjr_posterior_cm_bf16(Lsys, Lp, Kc)),
-                "bcjr": graph_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc)),
-                "bcjr_bf16_again": graph_ms(
+                "bcjr_bf16": 1e-3 * graph_us(
+                    lambda: bcjr_posterior_cm_bf16(Lsys, Lp, Kc)),
+                "bcjr": 1e-3 * graph_us(lambda: bcjr_posterior_cm(Lsys, Lp, Kc)),
+                "bcjr_bf16_again": 1e-3 * graph_us(
                     lambda: bcjr_posterior_cm_bf16(Lsys, Lp, Kc))}
     bcjr_eager_ms, bcjr_plain_ms = bcjr_times[(K, flag_shapes[K])]
     bcjr_ms = bcjr_graph["bcjr"]
@@ -1013,28 +993,27 @@ def main() -> int:
         La = torch.zeros((Bc, Kc), device=dev)
         b_ms, b_by = bound(*bcjr_work(Kc, Bc, windowed=False))
         one_window[f"K{Kc}_{Bc}rows"] = {
-            "ms": graph_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc, Kc + 3, 0)),
+            "ms": 1e-3 * graph_us(
+                lambda: bcjr_posterior_cm(Lsys, Lp, Kc, Kc + 3, 0)),
             "eager_ms": cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, Kc, Kc + 3, 0)),
             "bcjr_posterior_ms": cuda_ms(
                 lambda: _bcjr_posterior(Ls_r, Lp_r, La, Kc), reps=3, warm=1),
             "bound_ms": b_ms, "bound_by": b_by}
     # the same work counted at the bf16x2 rate (bytes bind either way)
     bf16_bound = bound(*bcjr_work(K, flag_shapes[K]), peak_ops=PEAK_BF16X2)
-    # the bf16 kernel at every shape it serves (the flagship's two decodes,
-    # 64 codeblocks at four K, the oracle's ten), in turns with the float32
-    # kernel on the same inputs, window 128, D = 32
+    # the bf16 kernel at every shape it serves (bcjr_bf16_turns.SHAPES), by
+    # graph replay in turns with the float32 kernel on the same inputs,
+    # window 128, D = 32
     bf16_shapes = {}
-    for Kc, Bc in (*flag_shapes.items(), *((k, 64) for k in (1056, 5632, 6016, 6080)),
-                   *((k, FEC_N) for k in ORACLE_K)):
+    for Kc, Bc in bf16_turns.SHAPES:
         Lsys, Lp = bcjr_llrs(Kc, Bc, g, dev)
         b_ms, b_by = bound(*bcjr_work(Kc, Bc), peak_ops=PEAK_BF16X2)
-        t = [graph_ms(lambda: fn(Lsys, Lp, Kc)) for fn in (
+        t = [1e-3 * graph_us(lambda: fn(Lsys, Lp, Kc)) for fn in (
             bcjr_posterior_cm_bf16, bcjr_posterior_cm, bcjr_posterior_cm_bf16,
             bcjr_posterior_cm)]
         bf16_shapes[f"K{Kc}_{Bc}cb"] = {"ms": t[0], "ms_again": t[2],
                                         "bcjr_ms": t[1], "bcjr_ms_again": t[3],
                                         "bound_ms": b_ms, "bound_by": b_by}
-    bf16_graph_ms = bf16_shapes[f"K{K}_{flag_shapes[K]}cb"]["ms"]
     sync_times = {}
     for label, s, ys in (("flagship", step.sync, y), ("wall", wall.sync, yw),
                          ("u8b16", s8, y8), ("runtime_B1", s_rt, y_rt[:1])):
@@ -1044,11 +1023,11 @@ def main() -> int:
         sync_times[label] = {
             "shape": list(ys.shape), "u": 8 if s.n_pat == 9 else 1,
             "b": s.P // 16, "span_rows": sync_detect.default_span(ys, s.P, s.n_pat, s.sl, s.sr),
-            "ms": graph_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
-            "ms_again": graph_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "ms": 1e-3 * graph_us(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "ms_again": 1e-3 * graph_us(lambda: sync_detect.detect_sm(ys, *sargs)),
             "eager_ms": cuda_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
-            "plain_ms": graph_ms(lambda: sync_detect.detect_sm_plain(ys, *sargs),
-                                 reps=5),
+            "plain_ms": 1e-3 * graph_us(
+                lambda: sync_detect.detect_sm_plain(ys, *sargs), reps=5),
             "bound_ms": b_ms, "bound_by": b_by}
     sync_ms = sync_times["flagship"]["ms"]
     sync_plain_ms = sync_times["flagship"]["plain_ms"]
@@ -1157,8 +1136,7 @@ def main() -> int:
          "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:188",
          "launches": total("bcjr_bf16"), "launches_by_path": by_path("bcjr_bf16"),
-         "max_abs_err": bf16_err, "ms": bf16_graph_ms, "eager_ms": bf16_ms,
-         "plain_ms": bf16_plain_ms,
+         "max_abs_err": bf16_err, "ms": bf16_ms, "plain_ms": bf16_plain_ms,
          "bound_ms": bf16_bound[0], "bound_by": bf16_bound[1],
          "library_ms": None, "regs": report["bcjr_bf16_regs"],
          "blocks_per_sm": report["bcjr_bf16_blocks_per_sm"],

@@ -7,7 +7,8 @@ its own and calls both kernels through the same C entry,
 bcjr_posterior_cm_bf16(lsys, lp, post, K, B, Lw, D, stream), at window 128
 and D = 32, at every shape the kernel is timed at (`SHAPES`: the flagship's
 two decodes, 64 codeblocks at four K, the FEC oracle's ten
-first-transmission decodes of 50 codeblocks), on the same random inputs, in
+first-transmission decodes of 50 codeblocks; chip_smoke and the card tests
+take them from here), on the same random inputs, in
 the order other, this, this, other. Each output is held to the plain twin
 bit for bit; each call is timed by CUDA events around CUDA-graph replays.
 Also counts the SASS instructions of each tree's bcjr_bf16_kernel by opcode
@@ -27,19 +28,18 @@ from collections import Counter
 
 import torch
 
-from . import kernels
+from . import fec_awgn, kernels
 from .kernels import graph_us
 from .phy.fec import bcjr_cuda
 
 OUT = pathlib.Path(__file__).resolve().parent.parent / "chiprun_out"
-# the FEC oracle's codeblock sizes, MCS 0-9 (fec_awgn.fec_psdef: one
-# codeblock a transport block), decoded 50 at a time
-ORACLE_K = (424, 848, 1280, 1696, 2560, 3392, 3840, 4224, 5120, 5632)
-# (K, codeblocks): the flagship's PDC decodes (16 codeblocks a packet, 13 of
+# (K, codeblocks) at which the kernel is checked and timed (window 128,
+# D = 32): the flagship's PDC decodes (16 codeblocks a packet, 13 of
 # K = 6016 and 3 of 6080, B = 64 streams), 64 codeblocks at the K of both
-# steps and the oracle's largest, and the oracle's decodes
+# steps and the oracle's largest, and the FEC oracle's first-transmission
+# decodes of 50 packets at MCS 0-9
 SHAPES = ([(6016, 832), (6080, 192)] + [(K, 64) for K in (1056, 5632, 6016, 6080)]
-          + [(K, 50) for K in ORACLE_K])
+          + [(fec_awgn.codeblock_K(mcs), 50) for mcs in range(10)])
 
 
 def other_library(checkout: pathlib.Path):

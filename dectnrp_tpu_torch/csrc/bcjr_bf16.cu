@@ -55,10 +55,11 @@
 //     thread to 2/C KB at Lw = 128: 8 KB a 32-thread block at C = 8.
 //  3. Valid steps only: the forward pass runs from max(0, w Lw - D) to the
 //     window's last checkpoint, the backward pass from min((w+1) Lw + D,
-//     K+3) down; a window that holds only tail steps exits at once.
+//     K+3) down; only the ceil(K / Lw) windows that hold outputs are
+//     launched, none of tail steps only.
 // Measured on an H100 (700 W) by bcjr_bf16_turns, graph replay, window 128:
-// 67.8 us at K = 6016 x 832 (the earlier design, every alpha of a window in
-// shared memory and a load in each step of the chain: 430 us); 35-37 us at
+// 66.4 us at K = 6016 x 832 (the earlier design, every alpha of a window in
+// shared memory and a load in each step of the chain: 432 us); 32.5-33 us at
 // 50 to 192 codeblocks, under one block an SM, where one thread's chain is
 // the time.
 #include <cuda_bf16.h>
@@ -160,13 +161,13 @@ struct Rows {
   float s[CH], p[CH];
   __device__ __forceinline__ void load(const float* __restrict__ lsys,
                                        const float* __restrict__ lpar,
-                                       int pos0, int lo, int hi, int B, int col) {
+                                       int pos0, int lo, int hi, int B, int cb) {
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
       const int pos = pos0 + i;
       const bool ok = pos >= lo && pos < hi;
-      s[i] = ok ? __ldg(lsys + (size_t)pos * B + col) : 0.f;
-      p[i] = ok ? __ldg(lpar + (size_t)pos * B + col) : 0.f;
+      s[i] = ok ? __ldg(lsys + (size_t)pos * B + cb) : 0.f;
+      p[i] = ok ? __ldg(lpar + (size_t)pos * B + cb) : 0.f;
     }
   }
 };
@@ -178,13 +179,11 @@ bcjr_bf16_kernel(const float* __restrict__ lsys, const float* __restrict__ lpar,
   bf2* alpha_sm = reinterpret_cast<bf2*>(smem_raw);   // [ceil(Lw/C)][NP][CB]
   const int tid = threadIdx.x;
   const int cb = blockIdx.x * CB + tid;
-  const int col = min(cb, B - 1);                     // ragged block: loads clamped,
-  const bool live = cb < B;                           // stores guarded
+  if (cb >= B) return;                                // no barrier below
   const int w = blockIdx.y;
   const int Kt = K + 3;
-  const int w0 = w * Lw;                              // first output position
+  const int w0 = w * Lw;                              // first output position (< K)
   const int oe = min(w0 + Lw, K);                     // end of the outputs
-  if (oe <= w0) return;                               // tail steps only (whole block)
   const int fs = max(0, w0 - D);                      // first forward position
   const int be = min(w0 + Lw + D, Kt);                // end of the backward positions
 
@@ -194,9 +193,9 @@ bcjr_bf16_kernel(const float* __restrict__ lsys, const float* __restrict__ lpar,
   bf2 a[NP];
   init_metrics(a, w == 0);
   Rows cur, nxt;
-  cur.load(lsys, lpar, fs, fs, fe, B, col);
+  cur.load(lsys, lpar, fs, fs, fe, B, cb);
   for (int p = fs; p < fe; p += CH) {
-    nxt.load(lsys, lpar, p + CH, fs, fe, B, col);
+    nxt.load(lsys, lpar, p + CH, fs, fe, B, cb);
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
       const int k = p + i - w0;
@@ -219,9 +218,9 @@ bcjr_bf16_kernel(const float* __restrict__ lsys, const float* __restrict__ lpar,
   bf2 b[NP];
   init_metrics(b, w0 + Lw + D >= Kt);
   int base = w0 + (be - 1 - w0) / CH * CH;
-  cur.load(lsys, lpar, base, w0, be, B, col);
+  cur.load(lsys, lpar, base, w0, be, B, cb);
   for (; base >= w0; base -= CH) {
-    nxt.load(lsys, lpar, base - CH, w0, be, B, col);
+    nxt.load(lsys, lpar, base - CH, w0, be, B, cb);
 #pragma unroll
     for (int j = CH / C - 1; j >= 0; --j) {
       const int gp = base + j * C;                    // the group's first position
@@ -262,7 +261,7 @@ bcjr_bf16_kernel(const float* __restrict__ lsys, const float* __restrict__ lpar,
             const bf2 lo2 = __hmax2(__hmax2(e0[0], e0[1]), __hmax2(e0[2], e0[3]));
             const float hi = fmaxf(__low2float(hi2), __high2float(hi2));
             const float lo = fmaxf(__low2float(lo2), __high2float(lo2));
-            if (live) post[(size_t)pos * B + cb] = hi - lo;
+            post[(size_t)pos * B + cb] = hi - lo;
           }
 #pragma unroll
           for (int k = 0; k < NP; ++k)
@@ -296,7 +295,7 @@ extern "C" int bcjr_posterior_cm_bf16(const void* lsys, const void* lp, void* po
   cudaError_t e = cudaFuncSetAttribute(
       bcjr_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int W = (K + 3 + Lw - 1) / Lw;
+  const int W = (K + Lw - 1) / Lw;                   // windows with outputs
   dim3 grid((B + CB - 1) / CB, W);
   bcjr_bf16_kernel<<<grid, CB, smem, (cudaStream_t)stream>>>(
       (const float*)lsys, (const float*)lp, (float*)post, K, B, Lw, D);

@@ -47,6 +47,14 @@ def fec_psdef(mcs: int) -> PacketSizesDef:
     return PacketSizesDef(1, 1, 0, 4, 0, mcs, 6144)
 
 
+def codeblock_K(mcs: int) -> int:
+    """The oracle's codeblock size at one MCS: one codeblock a transport
+    block, TB bits plus the CRC24, rounded up to a QPP size."""
+    ps = get_packet_sizes(fec_psdef(mcs))
+    K, = PdcPlan.get(ps.N_TB_bits, ps.G, ps.mcs.N_bps, fec_psdef(mcs).Z).cb_K
+    return K
+
+
 def noise_scale(snr_db: float) -> tuple[float, float]:
     """(noise variance, per-component noise amplitude sqrt(nv / 2)), both
     rounded to float32 as the JAX tool computes them."""

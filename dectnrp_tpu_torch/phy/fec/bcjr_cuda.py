@@ -32,8 +32,7 @@ boundaries uniform; steps outside [0, K+3) leave the metrics unchanged.
 kernel for every decode on the card that it can carry). Each wrapper
 launches its kernel for CUDA tensors and runs its plain twin for CPU
 tensors; any other device, and a window that does not fit the kernel's
-shared memory, raises (the bf16 wrapper refuses such a window on the CPU
-too, so both routes take the same windows).
+shared memory, raises.
 """
 from __future__ import annotations
 
@@ -215,7 +214,8 @@ def bcjr_windowed_cm_bf16_ckpt(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
     x2 -> posterior float32 [K, B], bit for bit
     `bcjr_windowed_cm_bf16_plain`.
 
-    - a window with no output position (w Lw >= K) is skipped;
+    - only the windows with outputs (w Lw < K) are walked, none of tail
+      steps only;
     - LLR rows are taken in chunks of CH = 8 from the first valid position; a
       row outside the range the kernel loads reads as NaN, so a row the
       kernel never uses cannot reach an output unseen (the kernel reads 0);
@@ -266,10 +266,8 @@ def bcjr_windowed_cm_bf16_ckpt(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
         return x - x[..., :1]
 
     post = torch.full((K, B), float("nan"), device=dev)
-    for w0 in range(0, Kt, Lw):
+    for w0 in range(0, K, Lw):
         oe = min(w0 + Lw, K)
-        if oe <= w0:
-            continue                       # tail steps only
         fs, be = max(0, w0 - D), min(w0 + Lw + D, Kt)
         fe = w0 + (oe - 1 - w0) // C * C + 1
         a, ck = init(w0 == 0), {}
@@ -354,15 +352,11 @@ def bcjr_posterior_cm(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
     return post
 
 
-def bcjr_posterior_cm_bf16(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
-                           Lw: int = 128, D: int = 32) -> torch.Tensor:
-    """Column-major windowed BCJR with bf16 state metrics: Lsys, Lp float32
-    [K+3, B] -> float32 [K, B].
-
-    CUDA tensors launch the bf16 kernel; CPU tensors run the plain twin.
-    Either way, a window of more than `LW_MAX_BF16` steps (beyond the
-    kernel's shared memory) or not in whole 4-step groups raises.
-    """
+def check_bf16_window(Lw: int, D: int) -> None:
+    """Raise unless the bf16 kernel takes windows of Lw steps with D
+    acquisition steps: Lw + 2D and D + Lw in whole 4-step groups, Lw at
+    most `LW_MAX_BF16` (its alpha checkpoints fill a block's shared memory
+    beyond that)."""
     if Lw <= 0 or D < 0 or (Lw + 2 * D) % 4 or (D + Lw) % 4:
         raise ValueError(f"bcjr_posterior_cm_bf16: bad Lw={Lw}, D={D} (Lw + 2D "
                          "and D + Lw must be multiples of 4)")
@@ -370,9 +364,20 @@ def bcjr_posterior_cm_bf16(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
         raise ValueError(f"bcjr_posterior_cm_bf16: a window of Lw={Lw} steps "
                          f"does not fit the kernel's shared memory (at most "
                          f"{LW_MAX_BF16})")
+
+
+def bcjr_posterior_cm_bf16(Lsys: torch.Tensor, Lp: torch.Tensor, K: int,
+                           Lw: int = 128, D: int = 32) -> torch.Tensor:
+    """Column-major windowed BCJR with bf16 state metrics: Lsys, Lp float32
+    [K+3, B] -> float32 [K, B].
+
+    CUDA tensors launch the bf16 kernel (a window `check_bf16_window`
+    refuses raises); CPU tensors run the plain twin.
+    """
     if Lsys.device.type == "cpu":
         return bcjr_windowed_cm_bf16_plain(Lsys, Lp, K, Lw, D)
     _check_inputs("bcjr_posterior_cm_bf16", Lsys, Lp, K)
+    check_bf16_window(Lw, D)
     from ... import kernels
 
     lib = kernels.load()

@@ -96,7 +96,7 @@ def test_bf16_twin_needs_4_step_groups(Lw, D):
 
 
 # (K, Lw, D) for the kernel's own walk: K + 3 < Lw and K + 3 = Lw (one
-# window), K a multiple of Lw (the last window holds tail steps only), the
+# window), K a multiple of Lw (a window of tail steps only, left out), the
 # oracle's K = 424 and K = 1056; Lw = 68 is not a multiple of the checkpoint
 # spacing 8, D = 0 runs no acquisition
 CKPT_CASES = [(K, Lw, D)
@@ -120,18 +120,17 @@ def test_bf16_ckpt_twin_matches_plain(K, Lw, D, B):
     assert torch.equal(got, want), (got - want).abs().max().item()
 
 
-@pytest.mark.parametrize("Lw,D", [(None, 32), (0, 32), (128, -4)])
+@pytest.mark.parametrize("Lw,D", [(None, 32), (0, 32), (128, -4), (126, 32)])
 def test_bf16_wrapper_refuses_windows_the_kernel_cannot_take(Lw, D):
-    """A window beyond the kernel's shared memory (`LW_MAX_BF16` steps:
-    ceil(Lw / 8) checkpoints of 512 bytes in 232,448) or an empty one raises
-    on the CPU route as on the card, and launches nothing."""
+    """The windows the bf16 wrapper's card route refuses
+    (`check_bf16_window`): beyond the kernel's shared memory (`LW_MAX_BF16`
+    steps: ceil(Lw / 8) checkpoints of 512 bytes in 232,448), empty, with
+    D < 0, or not in whole 4-step groups. The longest window passes."""
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
 
     M = bcjr_cuda.LW_MAX_BF16
     assert -(-M // 8) * 512 <= 232448 < (-(-M // 8) + 1) * 512
+    bcjr_cuda.check_bf16_window(M, 32)
     Lw = M + 4 if Lw is None else Lw
-    x = torch.zeros((515, 2))
-    n0 = bcjr_cuda.launches_bf16
     with pytest.raises(ValueError):
-        bcjr_cuda.bcjr_posterior_cm_bf16(x, x, 512, Lw, D)
-    assert bcjr_cuda.launches_bf16 == n0
+        bcjr_cuda.check_bf16_window(Lw, D)

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from dectnrp_tpu_torch.bcjr_bf16_turns import SHAPES
+
 pytestmark = pytest.mark.cuda
 
 
@@ -96,17 +98,14 @@ def test_bcjr_wrapper_rejects_bad_input(dev):
     assert bcjr_cuda.launches == n0
 
 
-# (K, B, Lw, D) for the bf16 kernel: every shape it is timed at (the
-# flagship's K = 6016 x 832 and 6080 x 192, 64 codeblocks at four K, the FEC
-# oracle's ten first-transmission decodes of 50); ragged B (50, 33, 1); a
-# last window of tail steps only (K a multiple of Lw); one window (K + 3 < Lw,
-# K + 3 = Lw); and the windows (64, 16), (128, 0), (68, 4) (Lw = 68 not a
-# multiple of the checkpoint spacing)
-BF16_ORACLE_K = (424, 848, 1280, 1696, 2560, 3392, 3840, 4224, 5120, 5632)
+# (K, B, Lw, D) for the bf16 kernel: every shape it is timed at
+# (bcjr_bf16_turns.SHAPES: the flagship's K = 6016 x 832 and 6080 x 192, 64
+# codeblocks at four K, the FEC oracle's ten first-transmission decodes of
+# 50); ragged B (50, 33, 1); K a multiple of Lw (the tail steps lie past the
+# last launched window, in its acquisition only); one window (K + 3 < Lw, K + 3 = Lw); and the windows (64, 16),
+# (128, 0), (68, 4) (Lw = 68 not a multiple of the checkpoint spacing)
 BCJR_BF16_SHAPES = (
-    [(6016, 832, 128, 32), (6080, 192, 128, 32)]
-    + [(K, 64, 128, 32) for K in (1056, 5632, 6016, 6080)]
-    + [(K, 50, 128, 32) for K in BF16_ORACLE_K]
+    [(K, B, 128, 32) for K, B in SHAPES]
     + [(512, 3, 128, 32), (1056, 2, 128, 32), (6080, 40, 128, 32),
        (5632, 33, 128, 32), (424, 1, 128, 32), (100, 5, 128, 32),
        (125, 33, 128, 32)]
