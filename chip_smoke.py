@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Three main paths, each driven once through its entry point with every
+Four main paths, each driven once through its entry point with every
 kernel's launch count set to 0 just before it and read just after:
   flagship  make_flagship_step: u=1 b=16 SISO MCS4, B = 64 streams of
             T = 192,512 samples, 2 packets each, 15 dB, no resampler;
@@ -15,7 +15,16 @@ kernel's launch count set to 0 just before it and read just after:
             combined in HarqProcessRx, at 3 SNR points per MCS (w - 4, w,
             w + 2 dB around the committed retx-0 waterfall w; cut in depth
             from the oracle's 21 points), plus the bf16 and float32 kernel
-            decodes of each point's first-transmission softbuffers.
+            decodes of each point's first-transmission softbuffers;
+  loopback_snr  the link-level loopback sweep (upper.loopback.
+            LoopbackSnrExperiment, as python -m dectnrp_tpu_torch.loopback_snr
+            runs it): its eight variants (sync, aligned, fading,
+            fading_aligned, fading_genie, resampled, mimo, mimo_fading) over
+            each variant's MCS at 500 packets a point, the committed sweep's
+            width, and 3 SNR points each (w - 4, w, w + 2 dB around the
+            committed curve's first PER_pdc_crc <= 0.1, or its three
+            lowest-PER points where it never reaches 0.1; cut in depth from
+            851 points to 129).
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
@@ -72,6 +81,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the same crc_ok packet for packet at w - 4 and w + 2 (the
      disagreements at w are recorded; their time, kernel_decode_s, is
      reported per MCS); both kernels launched on the path;
+  6c. the loopback sweep: first one point per variant (MCS 2 at the
+     committed threshold, 8 packets) on the card and on the CPU on the same
+     inputs and draws, with equal detected / plcf_ok / tb_ok and equal TB
+     bits where the CRC holds; then the loopback_snr path, each point's
+     PER_pdc_crc within 4 two-binomial standard deviations (pooled PER,
+     500 packets on both sides) + 0.01 of the committed curve's, and per
+     variant: the BCJR launched as one window and windowed, sync once a
+     point in the synced variants and never in the aligned ones, polyphase
+     twice a point in `resampled` and never elsewhere, bcjr_bf16 never;
+     the path's seconds and each variant's median point time;
   7. times with CUDA events / synchronized host clocks: each step's median
      over 5 steps, its realtime multiple B*T / step time / radio rate,
      per-stage times, and each kernel next to its plain twin, its bound on
@@ -89,11 +108,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (from the ptxas log) and blocks per SM; the polyphase kernel at the
      wall's two calls, 80/27 up and 27/80 down on 64 rows of a wall-length
      input, and the runtime's RX chunk (27/80, 2 rows), each beside conv1d,
-     its plain twin and its bound;
+     its plain twin and its bound; and the kernels at the loopback path's
+     shapes (B1 as one window at K = 56/96/320/480 x 500 rows and windowed
+     at K = 1440 and 2624 x 500 codeblocks, B2 at b = 1 on [500, 1, 2048]
+     and [500, 2, 2048], B3 10/9 on [500, 1, 720] and 9/10 on [500, 1,
+     800] beside conv1d), each beside its plain twin and bound;
   8. torch.profiler (device activity only) over one flagship and one wall
-     step: device kernels launched, their busy time and the device's idle
-     share under the profiler, the top kernels by time. Details go to
-     chiprun_out/profile_{flagship,wall}.json.
+     step and one loopback point of `sync` and of `mimo_fading` (MCS 2 at
+     the committed threshold, 500 packets): device kernels launched, their
+     busy time and the device's idle share under the profiler, the top
+     kernels by time. Details go to
+     chiprun_out/profile_{flagship,wall,loopback}.json.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Details go to
@@ -124,6 +149,11 @@ PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 # BF16 non-tensor 133.8 TFLOP/s on the SXM part)
 PEAK_BF16X2 = 2 * PEAK_FP32
 FEC_N, FEC_SNR_OFFSETS = 50, (-4.0, 0.0, 2.0)
+# the loopback sweep's width (results/loopback_snr/meta.json: 500 packets a
+# point), its committed curves and the per-point gate: |PER - committed| <=
+# LB_SIGMAS two-binomial standard deviations at the pooled PER, + 0.01
+LB_N, LB_SIGMAS = 500, 4.0
+LB_REF = ROOT / "results/loopback_snr"
 POLY_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
@@ -708,14 +738,15 @@ def time_stages(step, B, dev, gen, seed0):
     return med, stages
 
 
-def phase_profile(step, name, B, dev, gen, card, report):
-    """torch.profiler with device activity only over one step."""
+def profile_device(fn, name):
+    """torch.profiler with device activity only over one fn() call (after
+    one untraced call): (device events, host ms of the call, ms in which
+    the device was busy, [(kernel, count, ms)] by time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    p, t, o = _inputs(step, B, 200, dev)
-    step(p, t, o, gen)
+    fn()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall_ms, _ = host_ms(lambda: step(p, t, o, gen))
+        wall_ms, _ = host_ms(fn)
     ev = [e for e in prof.profiler.kineto_results.events()
           if e.device_type() == torch.autograd.DeviceType.CUDA]
     require(ev, f"profile {name}: no device activity traced")
@@ -733,6 +764,13 @@ def phase_profile(step, name, B, dev, gen, card, report):
         n, ms = by_name.get(e.name(), (0, 0.0))
         by_name[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return ev, wall_ms, busy_ms, top
+
+
+def phase_profile(step, name, B, dev, gen, card, report):
+    """torch.profiler with device activity only over one step."""
+    p, t, o = _inputs(step, B, 200, dev)
+    ev, wall_ms, busy_ms, top = profile_device(lambda: step(p, t, o, gen), name)
     prof_rep = {"card": card, "wall_ms": wall_ms, "n_device_events": len(ev),
                 "busy_union_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
                 "unprofiled_step_ms": report[f"{name}_times_ms_all"]["step"],
@@ -743,6 +781,185 @@ def phase_profile(step, name, B, dev, gen, card, report):
           f"{wall_ms:.1f} ms step, idle share {1 - busy_ms / wall_ms:.3f}; "
           "top: " + "; ".join(f"{n[:48]} x{c} {ms:.1f} ms"
                               for n, (c, ms) in top[:5]), flush=True)
+
+
+def phase_loopback_card_vs_cpu(dev, card, report):
+    """One loopback point per variant (MCS 2 at the committed curve's
+    threshold, 8 packets) on the card and on the CPU, on the same inputs
+    and draws: equal decisions."""
+    from dectnrp_tpu_torch import loopback_snr as L
+
+    res = {}
+    for name, _ in L.VARIANTS:
+        snr = L.cut_snrs(LB_REF, name, 2)[1]
+        a, b, tb = L.card_vs_cpu(name, 2, snr, 8, 1, dev)
+        require(L.decisions_equal(a, b), f"loopback {name} at {snr:g} dB: card "
+                "and CPU decisions differ")
+        res[name] = {"snr_db": snr, "tb_ok": a["tb_ok"].tolist(),
+                     "detected": a["detected"].tolist()}
+    report["loopback_card_vs_cpu"] = res
+    print(f"[{card}] loopback: one point per variant (MCS 2 at the committed "
+          "threshold, 8 packets) decides the same detected/plcf_ok/tb_ok/tb on "
+          "the card as on the CPU: " + ", ".join(
+              f"{k} {sum(v['tb_ok'])}/8" for k, v in res.items()), flush=True)
+
+
+def phase_loopback(dev, card, report):
+    """The loopback_snr path: every variant and MCS through
+    LoopbackSnrExperiment at 500 packets a point, 3 SNR points each (launch
+    counts zeroed before, read after), held to the committed curves."""
+    from dectnrp_tpu_torch import loopback_snr as L
+
+    zero_counts()
+    t_path = time.perf_counter()
+    res, n_points = {}, 0
+    for name, kw in L.VARIANTS:
+        c0, point_ms, curves = counts(), [], {}
+        for mcs in L.experiment(name, LB_N, dev).mcs_list:
+            snrs = L.cut_snrs(LB_REF, name, mcs)
+            exp = L.experiment(name, LB_N, dev, mcs=(mcs,), snr_db=snrs)
+            run_point = exp.run_point
+
+            def timed(*a, run_point=run_point):
+                ms, pt = host_ms(lambda: run_point(*a))
+                point_ms.append(ms)
+                return pt
+            exp.run_point = timed
+            got = exp.run()[mcs]["result"]
+            ref = L._load(LB_REF, name, mcs)
+            ref_snrs = ref["experiment_range"]["snr_vec"]
+            n_ref = ref["experiment_range"]["nof_experiment_per_snr"]
+            for s, pg, pcc in zip(snrs, got["PER_pdc_crc"], got["PER_pcc_crc"]):
+                pr = ref["result"]["PER_pdc_crc"][ref_snrs.index(s)]
+                p = (pg * LB_N + pr * n_ref) / (LB_N + n_ref)
+                lim = LB_SIGMAS * np.sqrt(p * (1 - p) * (1 / LB_N + 1 / n_ref)) + 0.01
+                require(abs(pg - pr) <= lim, f"loopback {name} MCS {mcs} at {s:g} "
+                        f"dB: PER_pdc_crc {pg:.3f} vs committed {pr:.3f} "
+                        f"(limit {lim:.3f})")
+            curves[mcs] = {"snr_db": snrs, "PER_pdc_crc": got["PER_pdc_crc"],
+                           "PER_pcc_crc": got["PER_pcc_crc"],
+                           "ref": [ref["result"]["PER_pdc_crc"][ref_snrs.index(s)]
+                                   for s in snrs]}
+            n_points += len(snrs)
+        torch.cuda.synchronize()
+        c1 = counts()
+        d = {k: c1[k] - c0[k] for k in c1}
+        n = len(point_ms)
+        want_sync = n if kw.get("use_sync") else 0
+        want_poly = 2 * n if kw.get("resampler_loop") else 0
+        require(d["bcjr_one_window"] > 0 and d["bcjr"] > d["bcjr_one_window"]
+                and d["sync"] == want_sync and d["polyphase"] == want_poly
+                and d["bcjr_bf16"] == 0,
+                f"loopback {name}: kernels not launched as expected ({d}; one "
+                f"window and windowed bcjr > 0, sync {want_sync}, polyphase "
+                f"{want_poly}, bcjr_bf16 0)")
+        res[name] = {"curves": curves, "launches": d, "points": n,
+                     "point_ms": point_ms,
+                     "point_ms_median": statistics.median(point_ms)}
+        print(f"[{card}] loopback_snr {name}: {n} points x {LB_N} packets within "
+              f"{LB_SIGMAS:g} sigma + 0.01 of the committed PER_pdc_crc; point "
+              f"median {res[name]['point_ms_median']:.1f} ms; launches "
+              + " ".join(f"{k} {v}" for k, v in d.items()), flush=True)
+    path_s = time.perf_counter() - t_path
+    launches = counts()
+    report["loopback_snr"] = {
+        "n": LB_N, "cut": "3 SNR points per variant x MCS: w - 4, w, w + 2 "
+        "around the committed curve's first PER_pdc_crc <= 0.1 (the 3 "
+        "lowest-PER points where it never reaches 0.1)", "points": n_points,
+        "path_s": path_s, "variants": res, "launches": launches}
+    print(f"[{card}] loopback_snr: 8 variants, {n_points} points (cut from 851) "
+          f"x {LB_N} packets passed their gates in {path_s:.1f} s; launches on "
+          "the path: " + " ".join(f"{k} {v}" for k, v in launches.items()),
+          flush=True)
+    return launches
+
+
+def loopback_kernel_times(dev, gen):
+    """The kernels at the shapes the loopback path launches them: B2 on
+    [500, R, 2048] at b = 1, B3 10/9 on [500, 1, 720] and 9/10 on [500, 1,
+    800], B1 as one window at K = 56/96/320/480 x 500 and windowed at
+    K = 1440 and 2624 x 500; each beside its plain twin and bound."""
+    from dectnrp_tpu_torch.kernels import graph_us
+    from dectnrp_tpu_torch.phy.fec.bcjr_cuda import (bcjr_posterior_cm,
+                                                     bcjr_windowed_cm_plain)
+    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+    from dectnrp_tpu_torch.phy.resampler import ResamplerPlan, build_resampler
+    from dectnrp_tpu_torch.phy.sync import build_sync
+
+    out = {"bcjr": {}, "sync": {}, "polyphase": {}}
+    g = torch.Generator(device=dev).manual_seed(9)
+    for K, windowed in ((56, False), (96, False), (320, False), (480, False),
+                        (1440, True), (2624, True)):
+        Lsys, Lp = bcjr_llrs(K, LB_N, g, dev)
+        lw = (128, 32) if windowed else (K + 3, 0)
+        if windowed:
+            def plain():
+                return bcjr_windowed_cm_plain(Lsys, Lp, K)
+        else:
+            Ls_r, Lp_r = Lsys.T.contiguous(), Lp.T.contiguous()
+            La = torch.zeros((LB_N, K), device=dev)
+
+            def plain():
+                return _bcjr_posterior(Ls_r, Lp_r, La, K)
+        b_ms, b_by = bound(*bcjr_work(K, LB_N, windowed))
+        out["bcjr"][f"K{K}_{LB_N}{'cb' if windowed else 'rows_one_window'}"] = {
+            "ms": 1e-3 * graph_us(lambda: bcjr_posterior_cm(Lsys, Lp, K, *lw)),
+            "eager_ms": cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, K, *lw)),
+            "plain_ms": cuda_ms(plain, reps=3, warm=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    s = build_sync(1, 1, 2048, device=dev)
+    y1 = stf_stream(1, 1, LB_N, 2048, 1, gen, dev)
+    y2 = torch.cat([y1, stf_stream(1, 1, LB_N, 2048, 1, gen, dev)], 1)
+    sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold, s.params.metric_max)
+    for ys in (y1, y2):
+        b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
+        out["sync"][f"[{LB_N},{ys.shape[1]},2048]_b1"] = {
+            "ms": 1e-3 * graph_us(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "eager_ms": cuda_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "plain_ms": 1e-3 * graph_us(
+                lambda: sync_detect.detect_sm_plain(ys, *sargs), reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    for (L_, M_), n_in in (((10, 9), 720), ((9, 10), 800)):
+        mod = build_resampler(ResamplerPlan(L_, M_), n_in, dev)
+        x = torch.randn((LB_N, 1, n_in), dtype=torch.complex64, generator=g,
+                        device=dev)
+        b_ms, b_by = bound(*poly_work(mod.G, L_, LB_N, n_in, mod.n_out))
+        out["polyphase"][f"{L_}/{M_}_[{LB_N},1,{n_in}]"] = {
+            **poly_times(x, mod.G, L_, M_, mod.m0, mod.n_out),
+            "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def loopback_entry(times):
+    """The kernels line's `loopback` entry: per shape its times and bound."""
+    return {k: {kk: v[kk] for kk in ("ms", "eager_ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}
+            for k, v in times.items()}
+
+
+def phase_profile_loopback(dev, card, report):
+    """torch.profiler over one sync point and one mimo_fading point (MCS 2
+    at the committed threshold, 500 packets): the device's idle share."""
+    from dectnrp_tpu_torch import loopback_snr as L
+
+    res = {}
+    for name in ("sync", "mimo_fading"):
+        snr = L.cut_snrs(LB_REF, name, 2)[1]
+        exp = L.experiment(name, LB_N, dev, mcs=(2,), snr_db=(snr,))
+        ev, wall_ms, busy_ms, top = profile_device(
+            lambda: exp.run_point(2, 0, snr), f"loopback {name}")
+        res[name] = {"snr_db": snr, "wall_ms": wall_ms, "n_device_events": len(ev),
+                     "busy_union_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+                     "top": [[n, c, ms] for n, (c, ms) in top]}
+        print(f"[{card}] profile (torch.profiler, device activity, one loopback "
+              f"{name} point, MCS 2 at {snr:g} dB, {LB_N} packets): {len(ev)} "
+              f"device events, busy {busy_ms:.1f} ms in a {wall_ms:.1f} ms point, "
+              f"idle share {1 - busy_ms / wall_ms:.3f}; top: " + "; ".join(
+                  f"{n[:48]} x{c} {ms:.1f} ms" for n, (c, ms) in top[:5]),
+              flush=True)
+    (OUT / "profile_loopback.json").write_text(json.dumps(res, indent=1))
+    report["loopback_profile"] = res
 
 
 def poly_times(x, G, L, M, m0, n_out):
@@ -941,6 +1158,11 @@ def main() -> int:
     # ---- 6b. the FEC oracle path, counted
     launches["fec_awgn"] = phase_fec_awgn(dev, card, report)
 
+    # ---- 6c. the loopback sweep: card == CPU at one point per variant, then
+    # the path itself, counted
+    phase_loopback_card_vs_cpu(dev, card, report)
+    launches["loopback_snr"] = phase_loopback(dev, card, report)
+
     # ---- 7. times [card]
     order = ("tx", "resample_up", "scatter", "awgn", "resample_down", "sync",
              "rx_stream", "pcc_decode", "pdc_decode")
@@ -1112,9 +1334,23 @@ def main() -> int:
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
+    # the kernels at the loopback path's shapes
+    lb_times = loopback_kernel_times(dev, gen)
+    report["kernel_ms"]["loopback"] = lb_times
+    print(f"[{card}] kernels at the loopback path's shapes, graph replay "
+          "(eager) vs plain twin[, conv1d], bound: " + "; ".join(
+              f"{kern} {k} {v['ms'] * 1e3:.1f} us ({v['eager_ms'] * 1e3:.1f}) vs "
+              f"{v['plain_ms']:.3f} ms"
+              + (f", {v['library_ms'] * 1e3:.1f} us" if v.get("library_ms") else "")
+              + f", {v['bound_ms'] * 1e3:.3f} us {v['bound_by']}"
+              for kern, by in lb_times.items() for k, v in by.items()), flush=True)
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
     # ---- 8. profiles
     phase_profile(step, "flagship", B_FLAG, dev, gen, card, report)
     phase_profile(wall, "wall", B_WALL, dev, gen, card, report)
+    phase_profile_loopback(dev, card, report)
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     def total(key):
         return sum(v[key] for v in launches.values())
@@ -1131,7 +1367,8 @@ def main() -> int:
          "max_abs_err": bcjr_err, "ms": bcjr_ms, "eager_ms": bcjr_eager_ms,
          "plain_ms": bcjr_plain_ms,
          "bound_ms": bcjr_bound[0], "bound_by": bcjr_bound[1],
-         "library_ms": None, "one_window": one_window},
+         "library_ms": None, "one_window": one_window,
+         "loopback": loopback_entry(lb_times["bcjr"])},
         {"name": "bcjr_posterior_cm_bf16", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:188",
@@ -1141,7 +1378,8 @@ def main() -> int:
          "library_ms": None, "regs": report["bcjr_bf16_regs"],
          "blocks_per_sm": report["bcjr_bf16_blocks_per_sm"],
          "shapes": {k: {kk: v[kk] for kk in ("ms", "bcjr_ms", "bound_ms")}
-                    for k, v in bf16_shapes.items()}},
+                    for k, v in bf16_shapes.items()},
+         "loopback": {}},
         {"name": "sync_detect_sm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",
          "replaces": "dectnrp_tpu/phy/ops/sync_detect.py:62",
@@ -1153,7 +1391,8 @@ def main() -> int:
          "blocks_per_sm_b16": report["sync_blocks_per_sm"][16],
          "shapes": {k: {kk: v[kk] for kk in ("ms", "eager_ms", "plain_ms",
                                              "bound_ms")}
-                    for k, v in sync_times.items()}},
+                    for k, v in sync_times.items()},
+         "loopback": loopback_entry(lb_times["sync"])},
         {"name": "polyphase_fir", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
          "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",
@@ -1163,7 +1402,8 @@ def main() -> int:
          "regs": report["poly_regs"], "blocks_per_sm": report["poly_blocks_per_sm"],
          "shapes": {k: {kk: v[kk] for kk in ("ms", "eager_ms", "plain_ms",
                                              "library_ms", "bound_ms")}
-                    for k, v in poly.items()}}]}
+                    for k, v in poly.items()},
+         "loopback": loopback_entry(lb_times["polyphase"])}]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

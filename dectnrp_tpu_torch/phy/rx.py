@@ -10,11 +10,14 @@ packets and RX antennas:
         type 1 AND 2 decode
      -> PDC: MRC or Alamouti combine -> soft demap -> turbo decode -> TB CRC.
 
-This port is `build_rx` at its defaults: chestim_mode="lr_t",
+This port is `build_rx` at its chestim defaults: chestim_mode="lr_t",
 freq_kind="wiener", time_kind="linear", dd_passes=0, est_sto and est_cfo
-on, genie off, for one spatial stream (N_SS = 1) over N_TS = 1 (MRC) or
-N_TS = 2/4/8 transmit streams (Alamouti). Any other value of these options,
-and MMSE combining (N_SS > 1), raise NotImplementedError (queued in
+on; for one spatial stream (N_SS = 1) over N_TS = 1 (MRC) or N_TS = 2/4/8
+transmit streams (Alamouti), and for N_SS > 1 spatial streams (MMSE per
+cell, JAX rx.py:73-93, 486-495; the PCC stays Alamouti over N_TS). With
+genie=True the receiver equalizes with a given TRUE channel in place of the
+DRS estimates (JAX rx.py:145-146, 302-314) and estimates no CFO or STO. Any
+other value of the chestim options raises NotImplementedError (queued in
 ROADMAP.md).
 """
 from __future__ import annotations
@@ -67,6 +70,26 @@ def _mrc(y, h):
     return num / den.clamp_min(1e-12), den
 
 
+def _mmse(y, h, nv, N_SS):
+    """Per-cell MMSE spatial equalizer for N_SS > 1 spatial multiplexing.
+
+    y [B,R,n], h [B,R,S,n] -> (x_eq unbiased [B,S,n], sinr [B,S,n]):
+    x_hat = (H^H H + nv I)^-1 H^H y, unbiased by the diagonal gain g, with
+    the per-stream post-MMSE SINR g/(1-g) as the demapper's CSI. The
+    `_ex` solvers leave errors unchecked, as XLA's, so no host sync.
+    """
+    H = h.permute(0, 3, 1, 2)                             # [B,n,R,S]
+    yv = y.permute(0, 2, 1)[..., None]                    # [B,n,R,1]
+    Hh = torch.conj(H.transpose(-1, -2))                  # [B,n,S,R]
+    eye = torch.eye(N_SS, dtype=h.dtype, device=h.device)
+    gram = Hh @ H + nv * eye                              # [B,n,S,S]
+    x = torch.linalg.solve_ex(gram, Hh @ yv)[0][..., 0]   # [B,n,S]
+    ginv = torch.linalg.inv_ex(gram)[0]
+    g = 1.0 - nv * torch.diagonal(ginv, dim1=-2, dim2=-1).real
+    g = g.clamp(1e-6, 1.0 - 1e-6)
+    return (x / g).permute(0, 2, 1), (g / (1.0 - g)).permute(0, 2, 1)
+
+
 def _alamouti(y, h, ts_a, ts_b):
     """y [B,R,n], h [B,R,N_TS,n] -> (x_eq [B,n], csi [B,n]).
 
@@ -92,24 +115,27 @@ def _alamouti(y, h, ts_a, ts_b):
     return x, csi
 
 
-#: the options of dectnrp_tpu/phy/rx.py::build_rx and the one value each
-#: takes in this port
+#: the options of dectnrp_tpu/phy/rx.py::build_rx and their defaults; the
+#: port takes each chestim option only at its default, and `genie` at both
+#: values (genie forces est_sto and est_cfo off, as JAX's does)
 RX_DEFAULTS = {"chestim_mode": "lr_t", "freq_kind": "wiener",
                "time_kind": "linear", "dd_passes": 0, "est_sto": True,
                "est_cfo": True, "genie": False}
 
 
 class Rx(torch.nn.Module):
-    """rx(iq complex64 [B, N_RX, N_samples_packet], noise_var) -> dict."""
+    """rx(iq complex64 [B, N_RX, N_samples_packet], noise_var[, h_genie])
+    -> dict; h_genie [B, N_RX, N_TS, S, N_occ] (the true channel) is
+    required with genie=True and refused otherwise."""
 
     def __init__(self, psdef: PacketSizesDef, network_id: int, plcf_type: int,
-                 n_iter: int = 6):
+                 n_iter: int = 6, genie: bool = False):
         super().__init__()
         luts = get_packet_luts(psdef)
         ps = self.ps = luts.ps
-        if ps.tm_mode.N_SS != 1:
-            raise NotImplementedError("build_rx: N_SS > 1 (MMSE) is not ported yet")
+        self.genie = genie
         self.N_TS = N_TS = ps.tm_mode.N_TS
+        self.N_SS = ps.tm_mode.N_SS
         q = ps.numerology
         N, S, cp = q.N_b_DFT, ps.N_PACKET_symb, q.N_b_CP
         N_occ = q.N_b_OCC
@@ -159,8 +185,9 @@ class Rx(torch.nn.Module):
                                      "lr_t").astype(np.complex64),
         }
         if N_TS > 1:
-            for name, n_cells in (("pcc", 98), ("pdc", ps.N_PDC_subc)):
-                tables[f"{name}_tsa"], tables[f"{name}_tsb"] = _pair_ts(n_cells, N_TS)
+            tables["pcc_tsa"], tables["pcc_tsb"] = _pair_ts(98, N_TS)
+        if N_TS > 1 and self.N_SS == 1:
+            tables["pdc_tsa"], tables["pdc_tsb"] = _pair_ts(ps.N_PDC_subc, N_TS)
         for i, Wf in enumerate(Wf_bank):
             for c in self.comb_vals:
                 tables[f"wf{i}_{c}"] = Wf[c]
@@ -180,24 +207,30 @@ class Rx(torch.nn.Module):
             hf = torch.where(mask, hc, hf)
         return hf
 
-    def forward(self, iq: torch.Tensor, noise_var) -> dict:
+    def forward(self, iq: torch.Tensor, noise_var, h_genie=None) -> dict:
         B, R = iq.shape[0], iq.shape[1]
         N, S, cp, N_occ, n4 = self.N, self.S, self.cp, self.N_occ, self.n4
         ps, ns, P_stf, N_TS = self.ps, self.n_drs_symb, self.P_stf, self.N_TS
         nv_bin = noise_var * N_occ / N
+        if (h_genie is None) == self.genie:
+            raise ValueError("rx: h_genie is required with genie=True and "
+                             "only then")
 
-        # residual fractional CFO from STF pattern pairs: lag P, then lag 3P
-        # disambiguated by the first, then derotate the whole packet
-        stf_t = iq[..., :self.n_pat * P_stf].reshape(B, R, self.n_pat, P_stf)
-        qq = (stf_t[:, :, :-1] * torch.conj(stf_t[:, :, 1:])
-              * self.w_pat[None, None, :, None]).sum((1, 2, 3))
-        cfo_a = -torch.angle(qq) / P_stf
-        lag = 3
-        q3 = (stf_t[:, :, :-lag] * torch.conj(stf_t[:, :, lag:])
-              * self.w3[None, None, :, None]).sum((1, 2, 3))
-        r3 = torch.angle(q3 * _cexp(cfo_a * (lag * P_stf)))
-        cfo_res = cfo_a - r3 / (lag * P_stf)
-        iq = iq * _exp_ramp(-cfo_res, iq.shape[-1])[:, None, :]
+        if self.genie:
+            cfo_res = torch.zeros((B,), dtype=torch.float32, device=iq.device)
+        else:
+            # residual fractional CFO from STF pattern pairs: lag P, then lag
+            # 3P disambiguated by the first, then derotate the whole packet
+            stf_t = iq[..., :self.n_pat * P_stf].reshape(B, R, self.n_pat, P_stf)
+            qq = (stf_t[:, :, :-1] * torch.conj(stf_t[:, :, 1:])
+                  * self.w_pat[None, None, :, None]).sum((1, 2, 3))
+            cfo_a = -torch.angle(qq) / P_stf
+            lag = 3
+            q3 = (stf_t[:, :, :-lag] * torch.conj(stf_t[:, :, lag:])
+                  * self.w3[None, None, :, None]).sum((1, 2, 3))
+            r3 = torch.angle(q3 * _cexp(cfo_a * (lag * P_stf)))
+            cfo_res = cfo_a - r3 / (lag * P_stf)
+            iq = iq * _exp_ramp(-cfo_res, iq.shape[-1])[:, None, :]
 
         # CP strip + batched FFT of the data field
         n0 = ps.N_samples_STF
@@ -207,6 +240,8 @@ class Rx(torch.nn.Module):
         grid = torch.zeros((B, R, S, N), dtype=torch.complex64, device=iq.device)
         grid[:, :, 1:1 + ps.N_DF_symb] = Y.to(torch.complex64)
         gf = grid.reshape(B, R, S * N)
+        if self.genie:
+            return self._genie(gf, h_genie, cfo_res, nv_bin, B, R)
 
         # DRS ZF estimates [B,R,T,n_symb,n4]
         h_zf = (gf[..., self.drs_lin] * self.drs_conj).reshape(B, R, N_TS, ns, n4)
@@ -255,6 +290,20 @@ class Rx(torch.nn.Module):
         return self._finish(gf, cf, theta, sto_frac, cfo_res, snr_db, h_cells,
                             nv_bin, B)
 
+    def _genie(self, gf, h_genie, cfo_res, nv_bin, B, R):
+        """The true channel in place of DRS ZF and interpolation; no STO."""
+        S, n4 = self.S, self.n4
+        cf = h_genie.reshape(B, R, self.N_TS, S * self.N_occ).to(torch.complex64)
+        zero = torch.zeros((B,), dtype=torch.float32, device=gf.device)
+        spn = (h_genie.abs() ** 2).mean((1, 2, 3, 4))
+        nv_den = (nv_bin.clamp_min(1e-12) if torch.is_tensor(nv_bin)
+                  else max(nv_bin, 1e-12))
+        snr_db = 10.0 * torch.log10((spn / nv_den).clamp_min(1e-10))
+        h_end = h_genie[..., S - 1, 0::4]                         # [B,R,T,n4]
+        h_cells = h_end[..., :n4 // 4 * 4].reshape(B, R, self.N_TS, 4, -1).mean(-1)
+        return self._finish(gf, cf, zero, zero, cfo_res, snr_db, h_cells,
+                            nv_bin, B)
+
     def _combine(self, y, h, name):
         """MRC over the RX rows for one transmit stream, Alamouti otherwise:
         y [B,R,n], h [B,R,T,n] -> (x_eq [B,n], csi [B,n])."""
@@ -279,9 +328,18 @@ class Rx(torch.nn.Module):
         a2, ok2, cl2, bf2 = pcc_decode(llr_pcc, 2, self.n_iter)
 
         # PDC: combine, demap, turbo decode, TB CRC
-        x_pdc, csi_pdc = self._combine(gf[..., self.pdc_lin], cf[..., self.pdc_locc],
-                                       "pdc")
-        llr_pdc = demap_llr(x_pdc, csi_pdc, ps.mcs.N_bps, nv_bin)
+        y_pdc, h_pdc = gf[..., self.pdc_lin], cf[..., self.pdc_locc]
+        if self.N_SS == 1:
+            x_pdc, csi_pdc = self._combine(y_pdc, h_pdc, "pdc")
+            llr_pdc = demap_llr(x_pdc, csi_pdc, ps.mcs.N_bps, nv_bin)
+        else:
+            # MMSE, then undo the TX's round-robin (stream s carries serial
+            # symbol i N_SS + s at cell i); the CSI is already the
+            # post-equalization SINR, so demap at unit noise
+            xs, sinr = _mmse(y_pdc, h_pdc, nv_bin, self.N_SS)      # [B,S,n]
+            x_pdc = xs.transpose(1, 2).reshape(B, -1)
+            csi_pdc = sinr.transpose(1, 2).reshape(B, -1)
+            llr_pdc = demap_llr(x_pdc, csi_pdc, ps.mcs.N_bps, 1.0)
         tb, tb_ok = pdc_decode(llr_pdc, self.plan, self.network_id,
                                self.plcf_type, n_iter=self.n_iter)
         return {
@@ -299,11 +357,16 @@ def build_rx(psdef: PacketSizesDef, network_id: int, plcf_type: int,
     """Aligned RX module for one packet configuration (dectnrp_tpu/phy/rx.py:120),
     on `device`.
 
-    `options` takes the JAX builder's chestim options, each only at its
-    default (`RX_DEFAULTS`); any other value is not ported yet."""
+    `options` takes the JAX builder's options (`RX_DEFAULTS`): `genie` at
+    both values, each chestim option only at its default (est_sto and
+    est_cfo may be off with genie, which turns them off anyway); any other
+    value is not ported yet."""
+    genie = bool(options.get("genie", False))
     for k, v in options.items():
         if k not in RX_DEFAULTS:
             raise TypeError(f"build_rx: unknown option {k!r}")
+        if k == "genie" or (genie and k in ("est_sto", "est_cfo")):
+            continue
         if v != RX_DEFAULTS[k]:
             raise NotImplementedError(f"build_rx: {k}={v!r} is not ported yet")
-    return Rx(psdef, network_id, plcf_type, n_iter).to(device)
+    return Rx(psdef, network_id, plcf_type, n_iter, genie).to(device)

@@ -4,12 +4,13 @@ Reference: lib/src/phy/tx/tx.cpp:165-314. Bits -> FEC -> QAM -> one grid
 scatter -> beamforming einsum -> batched IFFT + CP -> STF assembly + cover
 sequence -> GI, at the native DECT rate.
 
-The port covers one spatial stream (N_SS = 1): a single transmit stream, or
-N_TS = 2/4/8 transmit streams by Alamouti transmit diversity (JAX
-tx.py:26-42, 108-116), mapped onto the N_TX antennas through the first
-beamforming matrix W of the codebook; any redundancy version rv (the PDC
-rate matching's start, for HARQ retransmissions) and no TX windowing.
-Spatial multiplexing (N_SS > 1), other codebook entries and
+The port covers a single transmit stream, N_TS = 2/4/8 transmit streams
+by Alamouti transmit diversity (JAX tx.py:26-42, 108-116), and N_SS > 1
+spatial multiplexing (the PDC's serial symbols round-robin onto the N_SS =
+N_TS streams, JAX tx.py:100-103; the PCC stays Alamouti over N_TS), mapped
+onto the N_TX antennas through the first beamforming matrix W of the
+codebook; any redundancy version rv (the PDC rate matching's start, for
+HARQ retransmissions) and no TX windowing. Other codebook entries and
 `window_fraction` raise NotImplementedError (queued in ROADMAP.md).
 """
 from __future__ import annotations
@@ -42,9 +43,6 @@ class Tx(torch.nn.Module):
         super().__init__()
         luts = get_packet_luts(psdef)
         ps = luts.ps
-        if ps.tm_mode.N_SS != 1:
-            raise NotImplementedError("build_tx: N_SS > 1 (spatial multiplexing) "
-                                      "is not ported yet")
         if window_fraction > 0.0:
             raise NotImplementedError("build_tx: TX windowing is not ported yet")
         if codebook_idx:
@@ -55,6 +53,7 @@ class Tx(torch.nn.Module):
         q = ps.numerology
         self.N, self.S, self.cp = q.N_b_DFT, ps.N_PACKET_symb, q.N_b_CP
         self.N_TX, self.N_TS = ps.tm_mode.N_TX, ps.tm_mode.N_TS
+        self.N_SS = ps.tm_mode.N_SS
         self.plan = PdcPlan.get(ps.N_TB_bits, ps.G, ps.mcs.N_bps, psdef.Z)
         self.scale = luts.tx_scale
         W = get_W(self.N_TS, self.N_TX, 0).astype(np.complex64)    # [N_TX, N_TS]
@@ -65,6 +64,7 @@ class Tx(torch.nn.Module):
             "stf": self._stf(W, luts.stf_grid, psdef.u, psdef.b)}
         if self.N_TS > 1:
             tables.update(_alamouti_tables(luts.pcc_alamouti, "pcc"))
+        if luts.pdc_alamouti is not None:
             tables.update(_alamouti_tables(luts.pdc_alamouti, "pdc"))
         register_tables(self, tables)
 
@@ -97,12 +97,18 @@ class Tx(torch.nn.Module):
         e_pdc = pdc_encode(tb_bits, self.plan, self.network_id,
                            self.plcf_type, self.rv)               # [B, G]
         x_pdc = map_bits(e_pdc, ps.mcs.N_bps)
+        if self.N_SS > 1:
+            # serial symbols round-robin onto the spatial streams, each
+            # stream on its own transmit stream: [B, N_SS = N_TS, n_pdc]
+            ts_pdc = x_pdc.reshape(B, -1, self.N_SS).transpose(1, 2)
+        else:
+            ts_pdc = self._spread(x_pdc, "pdc")
 
         grid = torch.zeros((B, self.N_TS * S * N), dtype=torch.complex64,
                            device=plcf_bits.device)
         grid[:, self.drs_idx] = self.drs_val
         grid[:, self.pcc_idx] = self._spread(x_pcc, "pcc").reshape(B, -1)
-        grid[:, self.pdc_idx] = self._spread(x_pdc, "pdc").reshape(B, -1)
+        grid[:, self.pdc_idx] = ts_pdc.reshape(B, -1)
         grid_tx = torch.einsum("at,btsn->basn", self.W,
                                grid.reshape(B, self.N_TS, S, N))
 

@@ -6,6 +6,8 @@ with tests/conftest.py (which loads jax) switched off:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -398,3 +400,36 @@ def test_polyphase_wrapper_rejects_bad_input(dev):
         kernels.stream_ptr(x.device))
     assert err != 0
     assert polyphase.launches == n0
+
+
+LOOPBACK_VARIANTS = ["sync", "aligned", "fading", "fading_aligned", "fading_genie",
+                     "resampled", "mimo", "mimo_fading"]
+
+
+@pytest.mark.parametrize("variant", LOOPBACK_VARIANTS)
+def test_loopback_point_card_matches_cpu(dev, variant):
+    """One loopback point of each variant (MCS 2 at the committed threshold,
+    8 packets) decides the same on the card as on the CPU, on the same
+    inputs and draws, and launches the kernels as the loopback path must:
+    the BCJR as one window (PCC) and at the variant's PDC sizes, sync once
+    in the synced variants and never in the aligned ones, polyphase twice in
+    `resampled` and never elsewhere, bcjr_bf16 never."""
+    from dectnrp_tpu_torch import loopback_snr as L
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
+
+    def snap():
+        return (bcjr_cuda.launches, bcjr_cuda.launches_one_window,
+                bcjr_cuda.launches_bf16, sync_detect.launches, polyphase.launches)
+
+    kw = dict(L.VARIANTS)[variant]
+    ref = pathlib.Path(__file__).resolve().parents[1] / "results" / "loopback_snr"
+    snr = L.cut_snrs(ref, variant, 2)[1]
+    c0 = snap()
+    card, cpu, tb = L.card_vs_cpu(variant, 2, snr, 8, 1, dev)
+    d = [b - a for a, b in zip(c0, snap())]
+    assert L.decisions_equal(card, cpu), (card["tb_ok"], cpu["tb_ok"])
+    assert card["tb_ok"].any()
+    assert d[1] > 0 and d[0] >= d[1] and d[2] == 0, d
+    assert d[3] == (1 if kw.get("use_sync") else 0), d
+    assert d[4] == (2 if kw.get("resampler_loop") else 0), d

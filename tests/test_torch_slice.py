@@ -221,12 +221,15 @@ def test_aligned_rx_matches_jax(tm):
     ("rx", {"dd_passes": 1}),
     ("rx", {"est_sto": False}),
     ("rx", {"est_cfo": False}),
-    ("rx", {"genie": True}),
     ("tx", {"codebook_idx": 3}),
     ("tx", {"codebook_idx": 1, "rv": 2}),
     ("tx", {"window_fraction": 0.1}),
-    ("rx", {"tm": 2}),      # N_SS = 2: MMSE / spatial multiplexing
-    ("tx", {"tm": 2}),
+    # genie and N_SS > 1 are ported; the options beside them stay refused
+    ("rx", {"genie": True, "dd_passes": 1}),
+    ("rx", {"genie": True, "freq_kind": "linear"}),
+    ("rx", {"tm": 2, "chestim_mode": "lr_f"}),
+    ("tx", {"tm": 2, "codebook_idx": 1}),
+    ("tx", {"tm": 2, "window_fraction": 0.1}),
 ])
 def test_unported_options_raise(builder, kw):
     """Options and modes the JAX builders take beyond the port's are refused,
@@ -239,6 +242,62 @@ def test_unported_options_raise(builder, kw):
     tm = kw.pop("tm", 0)
     with pytest.raises(NotImplementedError):
         build(TPacketSizesDef(1, 2, 0, 2, tm, 3, 6144), NID, 1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("option", ["tx_tm2", "rx_tm2", "rx_genie"])
+def test_formerly_refused_options_match_jax(option):
+    """The options that were refused until ported: N_SS = 2 spatial
+    multiplexing in TX (tm 2) and MMSE in RX, and the genie RX on a flat
+    true channel (h_genie constant over symbols and subcarriers), each
+    against the JAX builders on the same inputs."""
+    from dectnrp_tpu.phy.rx import build_rx
+    from dectnrp_tpu.phy.tx import build_tx
+    from dectnrp_tpu_torch.phy.rx import build_rx as t_build_rx
+    from dectnrp_tpu_torch.phy.tx import build_tx as t_build_tx
+
+    tm = 0 if option == "rx_genie" else 2
+    args = (1, 1, 0, 2, tm, 3, 6144)
+    psdef, ps = PacketSizesDef(*args), get_packet_sizes(PacketSizesDef(*args))
+    B = 2
+    rng = np.random.default_rng(50 + tm)
+    plcf = rng.integers(0, 2, (B, 40)).astype(np.uint8)
+    tb = rng.integers(0, 2, (B, ps.N_TB_bits)).astype(np.uint8)
+    fl = np.zeros((B,), bool)
+    iq_j = np.asarray(build_tx(psdef, NID, 1)(
+        jnp.asarray(plcf), jnp.asarray(tb), jnp.asarray(fl), jnp.asarray(fl)))
+    iq_t = t_build_tx(TPacketSizesDef(*args), NID, 1, device="cpu")(
+        torch.as_tensor(plcf), torch.as_tensor(tb), torch.as_tensor(fl),
+        torch.as_tensor(fl)).numpy()
+    np.testing.assert_allclose(iq_t, iq_j, rtol=1e-5, atol=1e-6)
+    if option == "tx_tm2":
+        assert iq_t.shape[1] == 2
+        return
+    n_tx = iq_j.shape[1]
+    H = ((rng.standard_normal((B, 2, n_tx)) + 1j * rng.standard_normal((B, 2, n_tx)))
+         / np.sqrt(2)).astype(np.complex64)
+    nv = np.float32(10.0 ** (-25.0 / 10.0))
+    y = np.einsum("brt,btn->brn", H, iq_j)
+    y = (y + np.sqrt(nv / 2) * (rng.standard_normal(y.shape)
+                                + 1j * rng.standard_normal(y.shape))
+         ).astype(np.complex64)
+    kw, extra = {}, ()
+    if option == "rx_genie":
+        kw = {"genie": True}
+        q = ps.numerology
+        hg = np.broadcast_to(H[:, :, :, None, None], (B, 2, n_tx, ps.N_PACKET_symb,
+                                                      q.N_b_OCC)).copy()
+        extra = (hg,)
+    o_j = build_rx(psdef, NID, 1, **kw)(jnp.asarray(y), jnp.float32(nv),
+                                       *map(jnp.asarray, extra))
+    o_t = t_build_rx(TPacketSizesDef(*args), NID, 1, device="cpu", **kw)(
+        torch.as_tensor(y), torch.tensor(nv), *map(torch.as_tensor, extra))
+    for key in ("plcf1", "plcf1_ok", "plcf2_ok", "tb_ok", "tb"):
+        np.testing.assert_array_equal(o_t[key].numpy(), np.asarray(o_j[key]),
+                                      err_msg=key)
+    assert o_t["tb_ok"].all()
+    np.testing.assert_array_equal(o_t["tb"].numpy(), tb)
+    np.testing.assert_allclose(o_t["snr_db"].numpy(), np.asarray(o_j["snr_db"]),
+                               atol=1e-3)
 
 
 @pytest.mark.parametrize("tm,rv", [(0, 2), (5, 3)])
@@ -270,10 +329,14 @@ def test_builders_default_to_the_card():
     device="cpu" puts every buffer of the module on the CPU."""
     from dectnrp_tpu_torch import loopback
     from dectnrp_tpu_torch.phy import resampler, rx, sync, tx
+    from dectnrp_tpu_torch.upper import loopback as upper_loopback
 
     builders = [tx.build_tx, sync.build_sync, rx.build_rx, sync.build_rx_stream,
                 resampler.build_resampler, resampler.build_resampler_stream,
-                loopback.make_flagship_step, loopback.make_wall_step]
+                loopback.make_flagship_step, loopback.make_wall_step,
+                upper_loopback.PointStep, upper_loopback.point_step,
+                upper_loopback.LoopbackSnrExperiment,
+                upper_loopback.LoopbackRatioExperiment]
     for f in builders:
         assert inspect.signature(f).parameters["device"].default == "cuda", f
     psdef = TPacketSizesDef(1, 1, 0, 3, 5, 2, 6144)
@@ -286,7 +349,10 @@ def test_builders_default_to_the_card():
             resampler.build_resampler_stream(plan, 900, device="cpu"),
             loopback.make_flagship_step(TPacketSizesDef(1, 1, 0, 2, 0, 4, 6144),
                                         device="cpu"),
-            loopback.make_wall_step(psdef, device="cpu")]
+            loopback.make_wall_step(psdef, device="cpu"),
+            upper_loopback.PointStep(TPacketSizesDef(1, 1, 0, 2, 2, 2, 6144), NID,
+                                     True, None, "doubly_0_363_222", True,
+                                     device="cpu")]
     for m in mods:
         bufs = list(m.buffers())
         assert bufs and all(b.device.type == "cpu" for b in bufs), type(m)

@@ -32,7 +32,8 @@ COPIES = sorted(f"sections/part3/{p.name}" for p in
                 (ROOT / "dectnrp_tpu_torch/sections/part3").glob("*.py")) + [
     "phy/packet_config.py", "phy/chestim.py", "phy/filters.py",
     "phy/fec/qpp.py", "phy/fec/crc.py", "phy/fec/rate_match.py",
-    "phy/fec/turbo_np.py"]
+    "phy/fec/turbo_np.py", "sections/part4/identity.py",
+    "sections/part4/feedback_info.py", "sections/part4/plcf.py"]
 # the resampler's ratios: get_resampler_fraction's set and the inverses
 RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),
           (9, 10), (27, 40), (9, 20), (27, 80), (1, 2)]
@@ -250,9 +251,10 @@ def test_tables_to_device_keeps_values():
 
 def test_port_runs_without_jax():
     """A fresh interpreter imports the port, runs the small flagship- and
-    wall-shaped steps and one point of the FEC oracle (HARQ combining) end
-    to end and loads neither jax (the card's machine has none) nor the JAX
-    package."""
+    wall-shaped steps, one point of the FEC oracle (HARQ combining) and one
+    loopback point (upper/loopback.py: tm 2 through the doubly-selective
+    channel, sync and MMSE) end to end and loads neither jax (the card's
+    machine has none) nor the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, torch
@@ -292,6 +294,13 @@ def test_port_runs_without_jax():
                              dtype=torch.uint8)
         oks, errs, _ = st(tb, 20.0, torch.Generator().manual_seed(2))
         assert bool(oks.all()) and int(errs) == 0, (oks, errs)
+        # one loopback point of the mimo_fading variant, 4 packets at 30 dB
+        from dectnrp_tpu_torch import loopback_snr
+        from dectnrp_tpu_torch.upper import loopback as upper_loopback  # noqa: F401
+        exp = loopback_snr.experiment("mimo_fading", 4, "cpu", mcs=(1,),
+                                      snr_db=(30.0,))
+        pt = exp.run_point(1, 0, 30.0)
+        assert pt.n == 4 and pt.n_pdc >= 2, pt
         assert "jax" not in sys.modules, "the port loaded jax"
         assert "dectnrp_tpu" not in sys.modules, "the port loaded the JAX package"
         print("JAX_FREE_OK")
