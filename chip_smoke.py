@@ -108,11 +108,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (from the ptxas log) and blocks per SM; the polyphase kernel at the
      wall's two calls, 80/27 up and 27/80 down on 64 rows of a wall-length
      input, and the runtime's RX chunk (27/80, 2 rows), each beside conv1d,
-     its plain twin and its bound; and the kernels at the loopback path's
-     shapes (B1 as one window at K = 56/96/320/480 x 500 rows and windowed
-     at K = 1440 and 2624 x 500 codeblocks, B2 at b = 1 on [500, 1, 2048]
-     and [500, 2, 2048], B3 10/9 on [500, 1, 720] and 9/10 on [500, 1,
-     800] beside conv1d), each beside its plain twin and bound;
+     its plain twin and its bound;
+  7b. the kernels at the loopback path's shapes, each held to its plain
+     twin on the same card inputs, then timed beside it and its bound: B1
+     as one window at K = 56 / 96 (PCC) and 320 / 480 (PDC) x 500 rows, bit
+     for bit its plain twin and turbo._bcjr_posterior, and windowed at
+     every other PDC K of the path (576, 640, 880, 960, 1152, 1280, 1440,
+     1760) x 500 codeblocks, bit for bit its plain twin, each through the
+     decoder's own route; B2 at b = 1 on the streams the sync of one `sync`
+     point [500, 1, 2048] and one `mimo` point [500, 2, 2048] is handed (as
+     phase 4 checks it); B3 on the inputs of one `resampled` point, 10/9
+     [500, 1, 720] and 9/10 [500, 1, 800], bit for bit its tiled twin and
+     at rtol 2e-5 / atol 2e-5 its plain twin, beside conv1d;
   8. torch.profiler (device activity only) over one flagship and one wall
      step and one loopback point of `sync` and of `mimo_fading` (MCS 2 at
      the committed threshold, 500 packets): device kernels launched, their
@@ -874,67 +881,158 @@ def phase_loopback(dev, card, report):
     return launches
 
 
-def loopback_kernel_times(dev, gen):
-    """The kernels at the shapes the loopback path launches them: B2 on
-    [500, R, 2048] at b = 1, B3 10/9 on [500, 1, 720] and 9/10 on [500, 1,
-    800], B1 as one window at K = 56/96/320/480 x 500 and windowed at
-    K = 1440 and 2624 x 500; each beside its plain twin and bound."""
+def loopback_pdc_shapes():
+    """[(K, rows)] of the PDC decodes on the loopback path: per codeblock
+    size of every variant's MCS, its codeblocks a packet x LB_N."""
+    from dectnrp_tpu_torch import loopback_snr as L
+    from dectnrp_tpu_torch.phy.fec.chain import PdcPlan
+    from dectnrp_tpu_torch.sections.part3.packet_sizes import get_packet_sizes
+
+    shapes = set()
+    for name, _ in L.VARIANTS:
+        exp = L.experiment(name, LB_N, "cpu")
+        for mcs in exp.mcs_list:
+            psdef = exp.psdef(mcs)
+            ps = get_packet_sizes(psdef)
+            plan = PdcPlan.get(ps.N_TB_bits, ps.G, ps.mcs.N_bps, psdef.Z)
+            shapes |= {(K, n * LB_N) for K, n in Counter(plan.cb_K).items()}
+    return sorted(shapes)
+
+
+def loopback_stage_inputs(dev, n=LB_N):
+    """{(variant, module): (module, its input)}: what the loopback path hands
+    B2 and B3, caught by forward pre-hooks on the cached PointStep while one
+    point runs (MCS 2 at the committed threshold, n packets): the sync's
+    stream in `sync` (R = 1) and `mimo` (R = 2), the 10/9 and 9/10
+    resamplers' inputs in `resampled`."""
+    from dectnrp_tpu_torch import loopback_snr as L
+    from dectnrp_tpu_torch.upper.loopback import point_step
+
+    got = {}
+
+    def catch(key):
+        def hook(mod, args):
+            got.setdefault(key, (mod, args[0].clone()))
+        return hook
+    for name, mods in (("sync", ("sync",)), ("mimo", ("sync",)),
+                       ("resampled", ("up", "down"))):
+        exp = L.experiment(name, n, dev, mcs=(2,))
+        # the arguments exactly as _run_point passes them: the same cache entry
+        step = point_step(exp.psdef(2), exp.identity.network_id, exp.use_sync,
+                          None, exp.channel, exp.resampler_loop, exp.genie,
+                          exp.device)
+        hooks = [getattr(step, m).register_forward_pre_hook(catch((name, m)))
+                 for m in mods]
+        try:
+            exp.run_point(2, 0, L.cut_snrs(LB_REF, name, 2)[1])
+        finally:
+            for h in hooks:
+                h.remove()
+        require(all((name, m) in got for m in mods),
+                f"loopback {name}: the point did not run {mods}")
+    return got
+
+
+def phase_loopback_kernels(dev, report):
+    """The kernels at the shapes the loopback path launches them, each held
+    to its plain twin on the same card inputs, then timed beside it and its
+    bound. B1 as one window at K = 56 / 96 (PCC) and 320 / 480 (PDC) x 500
+    rows: bit for bit its plain twin and turbo._bcjr_posterior; windowed at
+    every other PDC K of the path x 500 codeblocks: bit for bit its plain
+    twin; each through the route the decoder takes. B2 at b = 1 on the
+    streams of one sync point [500, 1, 2048] and one mimo point [500, 2,
+    2048] (`_sync_check`). B3 on the inputs of one resampled point, 10/9
+    [500, 1, 720] and 9/10 [500, 1, 800]: bit for bit its tiled twin and
+    within POLY_TOL of its plain twin, conv1d beside it."""
     from dectnrp_tpu_torch.kernels import graph_us
-    from dectnrp_tpu_torch.phy.fec.bcjr_cuda import (bcjr_posterior_cm,
-                                                     bcjr_windowed_cm_plain)
-    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior, _resolve_bcjr
     from dectnrp_tpu_torch.phy.ops import sync_detect
-    from dectnrp_tpu_torch.phy.resampler import ResamplerPlan, build_resampler
-    from dectnrp_tpu_torch.phy.sync import build_sync
+    from dectnrp_tpu_torch.phy.ops.polyphase import polyphase_fir, polyphase_fir_plain
 
     out = {"bcjr": {}, "sync": {}, "polyphase": {}}
     g = torch.Generator(device=dev).manual_seed(9)
-    for K, windowed in ((56, False), (96, False), (320, False), (480, False),
-                        (1440, True), (2624, True)):
-        Lsys, Lp = bcjr_llrs(K, LB_N, g, dev)
+    for K, rows in [(56, LB_N), (96, LB_N)] + loopback_pdc_shapes():
+        windowed = K >= 512
         lw = (128, 32) if windowed else (K + 3, 0)
+        kind, route = _resolve_bcjr(K, None, "auto", dev)
+        require(kind == "cm" and route.func is bcjr_cuda.bcjr_posterior_cm
+                and route.keywords == {"K": K, "Lw": lw[0], "D": lw[1]},
+                f"loopback BCJR K={K}: the decoder does not take the kernel")
+        Lsys, Lp = bcjr_llrs(K, rows, g, dev)
+        got = route(Lsys, Lp)
+        twin = bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, *lw)
         if windowed:
             def plain():
-                return bcjr_windowed_cm_plain(Lsys, Lp, K)
+                return bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, *lw)
+            others = {}
         else:
             Ls_r, Lp_r = Lsys.T.contiguous(), Lp.T.contiguous()
-            La = torch.zeros((LB_N, K), device=dev)
+            La = torch.zeros((rows, K), device=dev)
 
             def plain():
                 return _bcjr_posterior(Ls_r, Lp_r, La, K)
-        b_ms, b_by = bound(*bcjr_work(K, LB_N, windowed))
-        out["bcjr"][f"K{K}_{LB_N}{'cb' if windowed else 'rows_one_window'}"] = {
-            "ms": 1e-3 * graph_us(lambda: bcjr_posterior_cm(Lsys, Lp, K, *lw)),
-            "eager_ms": cuda_ms(lambda: bcjr_posterior_cm(Lsys, Lp, K, *lw)),
+            others = {"turbo._bcjr_posterior": plain().T}
+        torch.cuda.synchronize()
+        label = f"K{K}_{rows}{'cb' if windowed else 'rows_one_window'}"
+        require(torch.isfinite(got).all(), f"loopback BCJR {label}: non-finite")
+        err = (got - twin).abs().max().item()
+        require(torch.equal(got, twin), f"loopback BCJR {label}: kernel vs "
+                f"plain twin max |err| {err} (must be 0)")
+        for name, want in others.items():
+            require(torch.equal(got, want), f"loopback BCJR {label}: kernel vs "
+                    f"{name} max |err| {(got - want).abs().max().item()} (must be 0)")
+        b_ms, b_by = bound(*bcjr_work(K, rows, windowed))
+        out["bcjr"][label] = {
+            "max_abs_err": err,
+            "ms": 1e-3 * graph_us(lambda: route(Lsys, Lp)),
+            "eager_ms": cuda_ms(lambda: route(Lsys, Lp)),
             "plain_ms": cuda_ms(plain, reps=3, warm=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    s = build_sync(1, 1, 2048, device=dev)
-    y1 = stf_stream(1, 1, LB_N, 2048, 1, gen, dev)
-    y2 = torch.cat([y1, stf_stream(1, 1, LB_N, 2048, 1, gen, dev)], 1)
-    sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold, s.params.metric_max)
-    for ys in (y1, y2):
+
+    stage = loopback_stage_inputs(dev)
+    for name in ("sync", "mimo"):
+        s, ys = stage[(name, "sync")]
+        label = f"[{LB_N},{ys.shape[1]},{ys.shape[2]}]_b{s.P // 16}"
+        err, err_t = _sync_check(s, ys, f"loopback_{name}", report)
+        sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold,
+                 s.params.metric_max)
         b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
-        out["sync"][f"[{LB_N},{ys.shape[1]},2048]_b1"] = {
+        out["sync"][label] = {
+            "variant": name, "max_abs_err": err, "max_abs_err_tiled": err_t,
             "ms": 1e-3 * graph_us(lambda: sync_detect.detect_sm(ys, *sargs)),
             "eager_ms": cuda_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
             "plain_ms": 1e-3 * graph_us(
                 lambda: sync_detect.detect_sm_plain(ys, *sargs), reps=5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    for (L_, M_), n_in in (((10, 9), 720), ((9, 10), 800)):
-        mod = build_resampler(ResamplerPlan(L_, M_), n_in, dev)
-        x = torch.randn((LB_N, 1, n_in), dtype=torch.complex64, generator=g,
-                        device=dev)
-        b_ms, b_by = bound(*poly_work(mod.G, L_, LB_N, n_in, mod.n_out))
-        out["polyphase"][f"{L_}/{M_}_[{LB_N},1,{n_in}]"] = {
-            **poly_times(x, mod.G, L_, M_, mod.m0, mod.n_out),
-            "bound_ms": b_ms, "bound_by": b_by}
+    for m in ("up", "down"):
+        mod, x = stage[("resampled", m)]
+        G, L_, M_, m0, n_out = mod.G, mod.plan.L, mod.plan.M, mod.m0, mod.n_out
+        label = f"{L_}/{M_}_{list(x.shape)}".replace(" ", "")
+        got = polyphase_fir(x, G, L_, M_, m0, n_out)
+        want = polyphase_fir_plain(x, G, L_, M_, m0, n_out)
+        tiled = poly_tiled(x, G, L_, M_, m0, n_out)
+        torch.cuda.synchronize()
+        require(torch.isfinite(got).all(), f"loopback polyphase {label}: non-finite")
+        err = (got - want).abs().max().item()
+        require(torch.allclose(got, want, **POLY_TOL), f"loopback polyphase "
+                f"{label}: kernel vs plain max |err| {err}")
+        err_t = (got - tiled).abs().max().item()
+        require(torch.equal(got, tiled), f"loopback polyphase {label}: kernel vs "
+                f"tiled twin max |err| {err_t} (must be 0)")
+        b_ms, b_by = bound(*poly_work(G, L_, x.numel() // x.shape[-1],
+                                      x.shape[-1], n_out))
+        out["polyphase"][label] = {
+            "max_abs_err": err, "max_abs_err_tiled": err_t,
+            **poly_times(x, G, L_, M_, m0, n_out), "bound_ms": b_ms,
+            "bound_by": b_by}
     return out
 
 
 def loopback_entry(times):
     """The kernels line's `loopback` entry: per shape its times and bound."""
-    return {k: {kk: v[kk] for kk in ("ms", "eager_ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by")}
+    return {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "eager_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")}
             for k, v in times.items()}
 
 
@@ -1334,12 +1432,17 @@ def main() -> int:
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # the kernels at the loopback path's shapes
-    lb_times = loopback_kernel_times(dev, gen)
+    # ---- 7b. the kernels at the loopback path's shapes: held to their plain
+    # twins, then timed
+    lb_times = phase_loopback_kernels(dev, report)
     report["kernel_ms"]["loopback"] = lb_times
-    print(f"[{card}] kernels at the loopback path's shapes, graph replay "
-          "(eager) vs plain twin[, conv1d], bound: " + "; ".join(
-              f"{kern} {k} {v['ms'] * 1e3:.1f} us ({v['eager_ms'] * 1e3:.1f}) vs "
+    print(f"[{card}] kernels at the loopback path's shapes, each equal to its "
+          "plain twin (B1 bit for bit, B2 rtol 2e-3 atol 2e-4 off gate ties, B3 "
+          "bit for bit its tiled twin and rtol 2e-5 atol 2e-5 its plain twin); "
+          "max |err|, graph replay (eager) vs plain twin[, conv1d], bound: "
+          + "; ".join(
+              f"{kern} {k} {v['max_abs_err']:.3g}, {v['ms'] * 1e3:.1f} us "
+              f"({v['eager_ms'] * 1e3:.1f}) vs "
               f"{v['plain_ms']:.3f} ms"
               + (f", {v['library_ms'] * 1e3:.1f} us" if v.get("library_ms") else "")
               + f", {v['bound_ms'] * 1e3:.3f} us {v['bound_by']}"

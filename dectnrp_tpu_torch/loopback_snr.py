@@ -19,8 +19,8 @@ Writes OUT/<variant>/rx_loopback_MCS_<mmmm>.json in the schema of
 results/loopback_snr/ and OUT/meta.json (the card, torch's version, wall
 seconds per variant). --mcs and --snr-db cut every variant to those MCS and
 SNR points. With --ref, the curves are compared with the ones there
-(`compare_curves`), printed and written to OUT/compare.json. It never writes
-under results/.
+(`compare_curves`), printed and written to OUT/compare.json, and the exit
+code is 1 if a check fails. It never writes under results/.
 """
 from __future__ import annotations
 
@@ -56,12 +56,12 @@ VARIANTS = (
 #: variant x MCS whose committed threshold sits on an error floor of the
 #: reference (0.10-0.14 at 20-36 dB, ROADMAP.md section C): no threshold gate
 THRESHOLD_EXEMPT = {("mimo_fading", 4)}
-#: the curve checks tests/test_loopback_snr_curves.py holds each variant's
-#: committed curves to; `compare_curves` reports every check on every
-#: variant and gates on these
-CURVE_GATES = {"sync": ("monotone", "success_at_top", "pcc_le_pdc"),
-               "aligned": ("monotone", "success_at_top", "pcc_le_pdc"),
-               "mimo": ("monotone", "success_at_top")}
+#: the variants whose committed curves tests/test_loopback_snr_curves.py
+#: holds to PER < 0.05 at the top SNR: the port's are held to it too. On the
+#: others the port's top PER may lie at most TOP_Z binomial standard
+#: deviations (at 0.05) above 0.05 where the reference's is below it.
+STRICT_TOP = ("sync", "aligned", "mimo")
+TOP_Z = 3.0
 _RESULTS = pathlib.Path(__file__).resolve().parents[1] / "results"
 
 
@@ -102,7 +102,7 @@ def card_vs_cpu(name: str, mcs: int, snr_db: float, B: int, seed: int,
     exp = experiment(name, B, device)
     args = (exp.psdef(mcs), exp.identity.network_id, exp.use_sync, None,
             exp.channel, exp.resampler_loop, exp.genie)
-    step = point_step(*args, device=exp.device)
+    step = point_step(*args, exp.device)      # _run_point's cache entry
     plcf, tb, offs = point_inputs(exp.psdef(mcs), exp.identity, B, seed, step.T,
                                   step.n_pkt)
     draws = step.draw(torch.Generator(device=step.device).manual_seed(seed), B)
@@ -140,16 +140,19 @@ def _load(d, variant, mcs):
         return json.load(f)
 
 
-def curve_checks(rec, ref) -> dict:
+def curve_checks(rec, ref, strict_top: bool = True) -> dict:
     """tests/test_loopback_snr_curves.py's checks of one curve: monotone
-    within 0.12, a success region (PER < 0.05) at the top SNR where the
-    reference has one, PCC never worse than PDC + 0.05."""
+    within 0.12, a success region at the top SNR where the reference has
+    one (PER < 0.05, or with `strict_top` False at most TOP_Z standard
+    deviations above it), PCC never worse than PDC + 0.05."""
     per = np.asarray(rec["result"]["PER_pdc_crc"])
     pcc = np.asarray(rec["result"]["PER_pcc_crc"])
     out = {"monotone": bool(np.all(per[1:] <= per[:-1] + 0.12)),
            "pcc_le_pdc": bool(np.all(pcc <= per + 0.05))}
     if ref["result"]["PER_pdc_crc"][-1] < 0.05:
-        out["success_at_top"] = bool(per[-1] < 0.05)
+        n = rec["experiment_range"]["nof_experiment_per_snr"]
+        z = (per[-1] - 0.05) / np.sqrt(0.05 * 0.95 / n)
+        out["success_at_top"] = bool(per[-1] < 0.05 if strict_top else z <= TOP_Z)
     return out
 
 
@@ -159,10 +162,9 @@ def compare_curves(out_dir, ref_dir, variants=None) -> dict:
     the reference (`binomial_z`), and `curve_checks`; across variants,
     sync - aligned <= 2 dB per MCS and, for MCS 4 at 20/24/28 dB, the
     estimated-channel fading PER (fading_aligned) at most max(7 p_genie,
-    0.07). "ok" is False if a cross-variant check or a check of
-    CURVE_GATES fails, or a threshold is more than 2 dB from the
-    reference's (where the reference reaches 0.1 and the pair is not in
-    THRESHOLD_EXEMPT)."""
+    0.07). "ok" is False if any check fails, or a threshold is more than
+    2 dB from the reference's (where the reference reaches 0.1 and the
+    pair is not in THRESHOLD_EXEMPT)."""
     names = [v for v, _ in VARIANTS if variants is None or v in variants]
     res, ok = {}, True
     for v in names:
@@ -185,14 +187,13 @@ def compare_curves(out_dir, ref_dir, variants=None) -> dict:
             exempt = b is None or (v, mcs) in THRESHOLD_EXEMPT
             within = (a is not None and abs(a - b) <= 2.0) if b is not None else None
             full = len(snrs) == len(ref_snrs)
-            checks = curve_checks(got, ref) if full else {}
+            checks = curve_checks(got, ref, v in STRICT_TOP) if full else {}
             r = {"first_snr_per_le_0.1": {"port": a, "ref": b},
                  "diff_db": None if a is None or b is None else a - b,
                  "within_2db": within, "exempt": exempt,
                  "max_abs_z": max(abs(x) for x in z), "z": z, "checks": checks}
             res.setdefault(v, {})[mcs] = r
-            gated = [checks[k] for k in CURVE_GATES.get(v, ()) if k in checks]
-            ok &= all(gated) and (not full or exempt or bool(within))
+            ok &= all(checks.values()) and (not full or exempt or bool(within))
     cross = {}
     for mcs in set(res.get("sync", {})) & set(res.get("aligned", {})):
         ts = res["sync"][mcs]["first_snr_per_le_0.1"]["port"]
@@ -266,6 +267,8 @@ def main(argv=None) -> None:
                       f"dB) {thr['port']} / {thr['ref']}; max |z| "
                       f"{c['max_abs_z']:.2f}; checks {c['checks']}", flush=True)
         print(f"cross-variant checks {cmp['cross']}; all ok: {cmp['ok']}", flush=True)
+        if not cmp["ok"]:
+            raise SystemExit("loopback_snr: the sweep disagrees with the reference")
 
 
 if __name__ == "__main__":

@@ -75,16 +75,17 @@ def _mmse(y, h, nv, N_SS):
 
     y [B,R,n], h [B,R,S,n] -> (x_eq unbiased [B,S,n], sinr [B,S,n]):
     x_hat = (H^H H + nv I)^-1 H^H y, unbiased by the diagonal gain g, with
-    the per-stream post-MMSE SINR g/(1-g) as the demapper's CSI. The
-    `_ex` solvers leave errors unchecked, as XLA's, so no host sync.
+    the per-stream post-MMSE SINR g/(1-g) as the demapper's CSI. The Gram
+    matrix is inverted once; `inv_ex` leaves errors unchecked, as XLA's,
+    so no host sync.
     """
     H = h.permute(0, 3, 1, 2)                             # [B,n,R,S]
     yv = y.permute(0, 2, 1)[..., None]                    # [B,n,R,1]
     Hh = torch.conj(H.transpose(-1, -2))                  # [B,n,S,R]
     eye = torch.eye(N_SS, dtype=h.dtype, device=h.device)
     gram = Hh @ H + nv * eye                              # [B,n,S,S]
-    x = torch.linalg.solve_ex(gram, Hh @ yv)[0][..., 0]   # [B,n,S]
     ginv = torch.linalg.inv_ex(gram)[0]
+    x = (ginv @ (Hh @ yv))[..., 0]                        # [B,n,S]
     g = 1.0 - nv * torch.diagonal(ginv, dim1=-2, dim2=-1).real
     g = g.clamp(1e-6, 1.0 - 1e-6)
     return (x / g).permute(0, 2, 1), (g / (1.0 - g)).permute(0, 2, 1)

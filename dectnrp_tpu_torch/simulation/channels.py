@@ -9,8 +9,7 @@ explicit `torch.Generator` on the stream's device and returns the channel's
 random numbers (`H`, or the Jakes angles `theta` and phases `phi`); `apply_*`
 is a pure function of its inputs. jax.random's streams cannot be reproduced
 in torch, so a parity test hands the JAX package's own draws to an apply.
-The composed `awgn`, `flat_fading`, `doubly_selective` and
-`doubly_selective_genie` draw and apply in one call.
+The composed `awgn` and `doubly_selective` draw and apply in one call.
 
 Noise has unit total variance per complex sample (1/2 per real dimension)
 and is scaled by sqrt(noise_var); the JAX package scales a draw of two unit
@@ -67,13 +66,6 @@ def draw_flat_fading(generator: torch.Generator, B: int, n_rx: int, n_tx: int,
 def apply_flat_fading(iq: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
     """iq [B, N_TX, n], H [B, n_rx, N_TX] -> y [B, n_rx, n]."""
     return torch.einsum("brt,btn->brn", H.to(torch.complex64), iq)
-
-
-def flat_fading(iq: torch.Tensor, n_rx: int, generator: torch.Generator):
-    """Frequency-flat Rayleigh MIMO channel: iq [B, N_TX, n] ->
-    (y [B, n_rx, n], H [B, n_rx, N_TX]); E|h|^2 = 1."""
-    H = draw_flat_fading(generator, iq.shape[0], n_rx, iq.shape[1], iq.device)
-    return apply_flat_fading(iq, H), H
 
 
 @lru_cache(maxsize=None)
@@ -135,15 +127,22 @@ def _tap_delay_line(iq: torch.Tensor, h: torch.Tensor,
     return y
 
 
+def _doubly(iq, theta, phi, samp_rate, tau_rms_s, doppler_hz, pdp_idx,
+            n_taps_max):
+    """(y [B, n_rx, n], h [B, n_rx, N_TX, L, n], active delays)."""
+    active, amps = tap_table(samp_rate, tau_rms_s, pdp_idx, n_taps_max)
+    h = _taps(theta, phi, iq.shape[-1], samp_rate, doppler_hz, amps)
+    return _tap_delay_line(iq, h, active), h, active
+
+
 def apply_doubly(iq: torch.Tensor, theta: torch.Tensor, phi: torch.Tensor,
                  samp_rate: float, tau_rms_s: float = 363e-9,
                  doppler_hz: float = 222.0, pdp_idx: int = 0,
                  n_taps_max: int = 16) -> torch.Tensor:
     """Doubly-selective Rayleigh channel on given draws: iq [B, N_TX, n],
     theta / phi [B, n_rx, N_TX, L, n_sin] -> y [B, n_rx, n]."""
-    active, amps = tap_table(samp_rate, tau_rms_s, pdp_idx, n_taps_max)
-    h = _taps(theta, phi, iq.shape[-1], samp_rate, doppler_hz, amps)
-    return _tap_delay_line(iq, h, active)
+    return _doubly(iq, theta, phi, samp_rate, tau_rms_s, doppler_hz, pdp_idx,
+                   n_taps_max)[0]
 
 
 def apply_doubly_genie(iq: torch.Tensor, theta: torch.Tensor, phi: torch.Tensor,
@@ -154,9 +153,8 @@ def apply_doubly_genie(iq: torch.Tensor, theta: torch.Tensor, phi: torch.Tensor,
     """apply_doubly and the TRUE per-symbol frequency response:
     (y [B, n_rx, n], H [B, n_rx, N_TX, S, N_occ]) with
     H[..., s, k] = sum_l h_l(t = sym_centers[s]) exp(-j 2 pi k_occ[k] d_l / N)."""
-    active, amps = tap_table(samp_rate, tau_rms_s, pdp_idx, n_taps_max)
-    h = _taps(theta, phi, iq.shape[-1], samp_rate, doppler_hz, amps)
-    y = _tap_delay_line(iq, h, active)
+    y, h, active = _doubly(iq, theta, phi, samp_rate, tau_rms_s, doppler_hz,
+                           pdp_idx, n_taps_max)
     hs = h[..., torch.as_tensor(sym_centers, device=h.device)]   # [B,R,T,L,S]
     ph = np.exp(-2j * np.pi * np.asarray(k_occ)[None, :]
                 * np.asarray(active)[:, None] / N).astype(np.complex64)
@@ -175,17 +173,3 @@ def doubly_selective(iq: torch.Tensor, n_rx: int, samp_rate: float,
                              iq.device)
     return apply_doubly(iq, theta, phi, samp_rate, tau_rms_s, doppler_hz,
                         pdp_idx, n_taps_max)
-
-
-def doubly_selective_genie(iq: torch.Tensor, n_rx: int, samp_rate: float,
-                           sym_centers: tuple[int, ...], k_occ: tuple[int, ...],
-                           N: int, generator: torch.Generator,
-                           tau_rms_s: float = 363e-9, doppler_hz: float = 222.0,
-                           pdp_idx: int = 0, n_taps_max: int = 16,
-                           n_sin: int = 8):
-    """doubly_selective and its true per-symbol channel (apply_doubly_genie)."""
-    L = tap_table(samp_rate, tau_rms_s, pdp_idx, n_taps_max)[0].size
-    theta, phi = draw_doubly(generator, iq.shape[0], n_rx, iq.shape[1], L, n_sin,
-                             iq.device)
-    return apply_doubly_genie(iq, theta, phi, samp_rate, sym_centers, k_occ, N,
-                              tau_rms_s, doppler_hz, pdp_idx, n_taps_max)

@@ -181,6 +181,15 @@ def test_cli_on_cpu(tmp_path):
         loopback_snr.main(["--n", "2", "--variants", "aligned", "--device", "cpu",
                            "--mcs", "1", "--snr-db", "20",
                            "--out", str(REF / "x")])
+    # a reference 22 dB away on the same grid: the comparison fails and the
+    # CLI exits non-zero
+    _write(tmp_path / "ref", "aligned", 1, [-2.0, 20.0], [0.0, 0.0], 2)
+    with pytest.raises(SystemExit) as e:
+        loopback_snr.main(["--n", "2", "--variants", "aligned", "--device", "cpu",
+                           "--mcs", "1", "--snr-db", "-2", "20", "--out", str(out),
+                           "--ref", str(tmp_path / "ref")])
+    assert e.value.code not in (0, None)
+    assert not json.load(open(out / "compare.json"))["ok"]
 
 
 def _write(d, variant, mcs, snrs, per, n, pcc=None):
@@ -205,10 +214,16 @@ def test_compare_curves_synthetic(tmp_path):
     _write(ref, "mimo", 2, snrs, [1.0, 0.6, 0.1, 0.0], 500)
     _write(got, "mimo", 2, snrs, [1.0, 0.4, 0.6, 0.0], 500,
            pcc=[1.0, 0.5, 0.7, 0.1])
-    # a fading curve ending at 0.06 where the reference ends at 0.048: its
-    # success_at_top fails, which gates only sync, aligned and mimo
+    # fading curves ending at 0.06 and 0.1 where the reference ends below
+    # 0.05: outside STRICT_TOP the top PER may lie 3 sigma above 0.05
+    # (0.079 at 500 packets), so the first passes and the second fails
     _write(ref, "fading", 4, snrs, [1.0, 0.5, 0.09, 0.048], 500)
     _write(got, "fading", 4, snrs, [1.0, 0.45, 0.1, 0.06], 500)
+    _write(ref, "fading", 5, snrs, [1.0, 0.5, 0.09, 0.04], 500)
+    _write(got, "fading", 5, snrs, [1.0, 0.45, 0.1, 0.1], 500)
+    # a sync curve ending at 0.06: STRICT_TOP holds it to < 0.05
+    _write(ref, "sync", 2, snrs, [1.0, 0.5, 0.08, 0.0], 500)
+    _write(got, "sync", 2, snrs, [1.0, 0.5, 0.08, 0.06], 500)
     cmp = compare_curves(got, ref)
     s = cmp["variants"]["sync"][1]
     assert s["first_snr_per_le_0.1"] == {"port": 6.0, "ref": 4.0}
@@ -220,7 +235,13 @@ def test_compare_curves_synthetic(tmp_path):
     assert m["checks"] == {"monotone": False, "pcc_le_pdc": False,
                            "success_at_top": True}
     assert not cmp["ok"]
-    assert cmp["variants"]["fading"][4]["checks"]["success_at_top"] is False
+    assert cmp["variants"]["sync"][2]["checks"]["success_at_top"] is False
+    assert cmp["variants"]["fading"][4]["checks"]["success_at_top"] is True
+    assert cmp["variants"]["fading"][5]["checks"]["success_at_top"] is False
+    (got / "sync" / "rx_loopback_MCS_0002.json").unlink()
+    assert compare_curves(got, ref, ["sync", "aligned"])["ok"]
+    assert not compare_curves(got, ref, ["fading"])["ok"]
+    (got / "fading" / "rx_loopback_MCS_0005.json").unlink()
     assert compare_curves(got, ref, ["sync", "aligned", "fading"])["ok"]
     # the z of two binomial estimates at the pooled p
     assert binomial_z(0.0, 500, 0.0, 500) == 0.0
