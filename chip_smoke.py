@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Four main paths, each driven once through its entry point with every
+Five main paths, each driven once through its entry points with every
 kernel's launch count set to 0 just before it and read just after:
   flagship  make_flagship_step: u=1 b=16 SISO MCS4, B = 64 streams of
             T = 192,512 samples, 2 packets each, 15 dB, no resampler;
@@ -24,7 +24,19 @@ kernel's launch count set to 0 just before it and read just after:
             width, and 3 SNR points each (w - 4, w, w + 2 dB around the
             committed curve's first PER_pdc_crc <= 0.1, or its three
             lowest-PER points where it never reaches 0.1; cut in depth from
-            851 points to 129).
+            851 points to 129);
+  runtime   the node runtime and the scenario runner (python -m
+            dectnrp_tpu_torch.apps.dectnrp_main <dir> --ticks N, through
+            apps.dectnrp_main.run) over the committed simulator
+            configurations, not cut: u = 1, b = 1, 1.728 Ms/s, spp 2048,
+            1 Mi-sample RX rings; basic_simulator 40 ticks, rtt_simulator
+            40 ticks with 3 datagrams echoed over the air, p2p_simulator 120
+            ticks, loopback_simulator 4 ticks (its firmware's PER sweep: MCS
+            1, 2 at 0, 10, 20 dB, 20 packets); then the exchanges of
+            tools/run_tpu_runtime_check.py rebuilt on the port
+            (runtime_check): 4 beacons between two nodes at 1.728 Ms/s and
+            at 1.92 Ms/s (the 9/10 front end and the 10/9 TX resampler in
+            the loop), and 2 beacons of the 2 x 2 N_SS = 2 exchange.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
@@ -91,6 +103,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
      point in the synced variants and never in the aligned ones, polyphase
      twice a point in `resampled` and never elsewhere, bcjr_bf16 never;
      the path's seconds and each variant's median point time;
+  6d. the runtime path: rtt_simulator returns every datagram without a
+     PDC error, the p2p PT is ASSOCIATED after >= 2 beacons,
+     loopback_simulator's PER records are 0 at 20 dB, every exchange decodes
+     every beacon with its payload with no TX late (and reads n_ss = 2 from
+     the PLCF in the 2 x 2 exchange); per run: sync launched once a chunk
+     (and once a loopback point), the BCJR as one window (windowed only at
+     the 2 x 2 exchange's PDC, K = 880), polyphase once a front-end step
+     and a resampled TX burst in the 1.92 Ms/s exchange and never
+     elsewhere, bcjr_bf16 never; each run's ticks, median host ms a tick
+     and realtime multiple (spp / radio rate / tick time); then the
+     DECT-rate exchange on the card and on the CPU with the same vspace
+     draws: equal RuntimeStats, detection times and TBs;
   7. times with CUDA events / synchronized host clocks: each step's median
      over 5 steps, its realtime multiple B*T / step time / radio rate,
      per-stage times, and each kernel next to its plain twin, its bound on
@@ -120,12 +144,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      phase 4 checks it); B3 on the inputs of one `resampled` point, 10/9
      [500, 1, 720] and 9/10 [500, 1, 800], bit for bit its tiled twin and
      at rtol 2e-5 / atol 2e-5 its plain twin, beside conv1d;
+  7c. the kernels on the inputs the runtime path handed them (caught while
+     it ran), each held to its plain twin, then timed beside it and its
+     bound: B1 at every (K, rows) decoded (one window below K = 512, bit for
+     bit its plain twin and turbo._bcjr_posterior; windowed at K = 880),
+     B2 on a sync chunk [1, R, 2,496] at R = 1 and 2, B3 on the 10/9 TX
+     burst and the 9/10 front-end step (history + 5,120 radio samples), bit
+     for bit its tiled twin and at rtol 2e-5 / atol 2e-5 its plain twin;
+  7d. a runtime tick's host time by layer: one exchange at each rate with
+     every stage synchronized and timed (vspace tick, the 9/10 front end,
+     sync, the PCC and PDC stages, TX, firmware; the rest is the runtime's
+     own host logic);
   8. torch.profiler (device activity only) over one flagship and one wall
-     step and one loopback point of `sync` and of `mimo_fading` (MCS 2 at
-     the committed threshold, 500 packets): device kernels launched, their
-     busy time and the device's idle share under the profiler, the top
-     kernels by time. Details go to
-     chiprun_out/profile_{flagship,wall,loopback}.json.
+     step, one loopback point of `sync` and of `mimo_fading` (MCS 2 at
+     the committed threshold, 500 packets) and one runtime exchange at each
+     rate: device kernels launched, their busy time and the device's idle
+     share under the profiler, the top kernels by time. Details go to
+     chiprun_out/profile_{flagship,wall,loopback,runtime}.json.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Details go to
@@ -1029,8 +1064,9 @@ def phase_loopback_kernels(dev, report):
     return out
 
 
-def loopback_entry(times):
-    """The kernels line's `loopback` entry: per shape its times and bound."""
+def path_entry(times):
+    """A kernels line entry of one path's shapes (`loopback`, `runtime`):
+    per shape its max |err|, times and bound."""
     return {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "eager_ms", "plain_ms",
                                       "library_ms", "bound_ms", "bound_by")}
             for k, v in times.items()}
@@ -1093,6 +1129,380 @@ def poly_times(x, G, L, M, m0, n_out):
             "library_ms": 1e-3 * graph_us(lambda: F.conv1d(xr, wt, stride=M)),
             "ms_again": 1e-3 * graph_us(kernel),
             "eager_ms": cuda_ms(kernel), "library_max_abs_err": lib_err}
+
+
+# ---------------------------------------------------------------- runtime
+
+# the scenario runs of the runtime path: (configuration, ticks, datagrams
+# handed to node 0); p2p_simulator as tests/test_config_cli.py:58 runs it
+RT_SCENARIOS = (("basic_simulator", 40, 0), ("rtt_simulator", 40, 3),
+                ("p2p_simulator", 120, 0), ("loopback_simulator", 4, 0))
+
+
+def rt_pumps(runtimes):
+    """Resampler front-end steps the runtimes ran (0 at the DECT rate)."""
+    return sum((rt._hw_consumed - (rt._hw_origin or 0)) // rt._chunk_pump
+               for rt in runtimes if not rt.plan_tx.identity)
+
+
+def rt_tick_stats(tick_ms, spp, rate, n_nodes):
+    """Host ms a tick, median and mean, and the realtime multiple: radio
+    time a tick (spp / rate) over the mean tick. The first tick, which
+    builds the PHY modules (and in loopback_simulator runs the firmware's
+    sweep), is left out. The mean, not the median, sets the multiple: at
+    1.92 Ms/s most ticks only resample, and every second or third one
+    syncs."""
+    steady = tick_ms[1:]
+    mean = statistics.fmean(steady)
+    return {"ticks": len(tick_ms), "tick_ms_median": statistics.median(steady),
+            "tick_ms_mean": mean, "tick_ms_max": max(steady),
+            "first_tick_ms": tick_ms[0],
+            "realtime_multiple": spp / rate / (mean * 1e-3), "nodes": n_nodes}
+
+
+class RuntimeCatch:
+    """Catches, while a run goes, the first input of each shape that the
+    runtime hands B1 (the decoder's BCJR route, patched), B2 (the Sync
+    modules) and B3 (the resamplers): a forward pre-hook on every module
+    and a recording route. Nothing is launched for it."""
+
+    def __init__(self):
+        from dectnrp_tpu_torch.phy.fec import turbo
+        from dectnrp_tpu_torch.phy.resampler import Resampler, ResamplerStream
+        from dectnrp_tpu_torch.phy.sync import Sync
+
+        self.bcjr, self.sync, self.poly = {}, {}, {}
+        self._turbo, self._resolve = turbo, turbo._resolve_bcjr
+
+        def hook(mod, args):
+            if isinstance(mod, Sync):
+                self.sync.setdefault(tuple(args[0].shape), (mod, args[0].clone()))
+            elif isinstance(mod, ResamplerStream):
+                xp = torch.cat([args[1], args[0]], -1)
+                self.poly.setdefault((mod.plan.L, mod.plan.M, tuple(xp.shape)),
+                                     (mod.G, mod.off, mod.n_out, xp.clone()))
+            elif isinstance(mod, Resampler):
+                self.poly.setdefault(
+                    (mod.plan.L, mod.plan.M, tuple(args[0].shape)),
+                    (mod.G, mod.m0, mod.n_out, args[0].contiguous().clone()))
+
+        def resolve(K, window, impl, device):
+            kind, route = self._resolve(K, window, impl, device)
+            if kind != "cm":
+                return kind, route
+
+            def rec(Lsys, Lp):
+                self.bcjr.setdefault((K, Lsys.shape[1]),
+                                     (route, Lsys.clone(), Lp.clone()))
+                return route(Lsys, Lp)
+            return kind, rec
+        self._hook = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+        turbo._resolve_bcjr = resolve
+
+    def close(self):
+        self._hook.remove()
+        self._turbo._resolve_bcjr = self._resolve
+
+
+def phase_runtime(dev, card, report):
+    """The runtime path: the scenario runner (apps.dectnrp_main.run, as
+    `python -m dectnrp_tpu_torch.apps.dectnrp_main <dir> --ticks N` runs it)
+    over the committed simulator configurations, then the exchanges of
+    tools/run_tpu_runtime_check.py (runtime_check: beacons at 1.728 and
+    1.92 Ms/s, the 2 x 2 N_SS = 2 exchange), each gated, its kernels
+    counted: B1 as one window (windowed only at the 2 x 2 exchange's PDC,
+    K = 880), B2 once a sync chunk (and once a
+    loopback point), B3 once a front-end step and a resampled TX burst and
+    never at the DECT rate, B4 never. Returns (launches on the path, the
+    inputs caught for phase 7c)."""
+    from dectnrp_tpu_torch import runtime_check as rc
+    from dectnrp_tpu_torch.apps import dectnrp_main
+    from dectnrp_tpu_torch.upper.p2p import AssocState
+
+    zero_counts()
+    catch = RuntimeCatch()
+    runs, t_path = {}, time.perf_counter()
+    try:
+        for name, ticks, n_dg in RT_SCENARIOS:
+            c0, t0 = counts(), time.perf_counter()
+            argv = [str(ROOT / "configurations" / name), "--ticks", str(ticks)]
+            if n_dg:
+                argv += ["--datagrams", str(n_dg)]
+            run, recs = dectnrp_main.run(argv)
+            torch.cuda.synchronize()
+            d = {k: v - c0[k] for k, v in counts().items()}
+            fws, rts = run.firmwares, run.runtimes
+            extra_sync = 0
+            if name == "rtt_simulator":
+                require([r["firmware"] for r in recs] == [{"tx": n_dg, "rx": n_dg}] * 2
+                        and fws[0].app_rx == dectnrp_main.datagrams(n_dg)
+                        and all(r["runtime"]["pdc_err"] == 0 for r in recs),
+                        f"rtt_simulator: {n_dg} round trips not all returned "
+                        f"without a PDC error ({recs})")
+            elif name == "p2p_simulator":
+                require(fws[1].state is AssocState.ASSOCIATED
+                        and fws[1].stats["beacons"] >= 2,
+                        f"p2p_simulator: PT {fws[1].state}, {fws[1].stats}")
+            elif name == "loopback_simulator":
+                res = fws[0].results
+                require(sorted(res) == [1, 2] and all(
+                    r["experiment_range"]["snr_vec"][-1] == 20.0
+                    and r["result"]["PER_pdc_crc"][-1] == 0.0
+                    and r["result"]["PER_pcc_crc"][-1] == 0.0
+                    for r in res.values()),
+                    f"loopback_simulator: PER records at 20 dB {res}")
+                extra_sync = sum(len(r["experiment_range"]["snr_vec"])
+                                 for r in res.values())
+            runs[name] = {"records": recs, "launches": d,
+                          "seconds": time.perf_counter() - t0,
+                          **rt_tick_stats(run.tick_ms, run.driver.spp,
+                                          run.driver.vspace.cfg.samp_rate, len(rts)),
+                          "want": {"sync": sum(r.stats.chunks for r in rts) + extra_sync,
+                                   "polyphase": rt_pumps(rts)}}
+        for kind in ("dect", "sdr", "mimo"):
+            c0, t0 = counts(), time.perf_counter()
+            ex = rc.build(kind, dev)
+            got = rc.run(ex, sync=torch.cuda.synchronize)
+            d = {k: v - c0[k] for k, v in counts().items()}
+            require(got["ok"] and got["tx_late"] == 0,
+                    f"runtime exchange {kind}: not every beacon decoded with its "
+                    f"payload, or a TX late ({got})")
+            rts = (ex.rt_tx, ex.rt_rx)
+            n_tx_resampled = sum(r.stats.tx_packets for r in rts
+                                 if not r.plan_tx.identity)
+            runs[f"exchange_{kind}"] = {
+                **{k: v for k, v in got.items() if k not in ("tx_stats",)},
+                "launches": d, "seconds": time.perf_counter() - t0,
+                **rt_tick_stats(ex.tick_ms, rc.SPP, rc.KINDS[kind][2], 2),
+                "want": {"sync": sum(r.stats.chunks for r in rts),
+                         "polyphase": rt_pumps(rts) + n_tx_resampled}}
+    finally:
+        catch.close()
+    path_s = time.perf_counter() - t_path
+    for name, r in runs.items():
+        d, w = r["launches"], r["want"]
+        # every code block of the path has K < 512 (one window) but the
+        # 2 x 2 exchange's PDC, K = 880 (128-step windows)
+        packets = name != "basic_simulator"
+        windowed = d["bcjr"] - d["bcjr_one_window"]
+        require(d["sync"] == w["sync"] and d["polyphase"] == w["polyphase"]
+                and (d["bcjr_one_window"] > 0 or not packets)
+                and (windowed > 0) == (name == "exchange_mimo")
+                and d["bcjr_bf16"] == 0
+                and (d["polyphase"] > 0) == (name == "exchange_sdr"),
+                f"runtime {name}: kernels not launched as expected ({d}; sync "
+                f"{w['sync']}, polyphase {w['polyphase']}, bcjr as one window, "
+                "windowed only in exchange_mimo, bcjr_bf16 0)")
+        print(f"[{card}] runtime {name}: {r['ticks']} ticks, median "
+              f"{r['tick_ms_median']:.2f} ms / mean {r['tick_ms_mean']:.2f} ms "
+              f"a tick = {r['realtime_multiple']:.2f}x realtime "
+              f"({r['nodes']} node(s)); "
+              + ("" if not name.startswith("exchange") else
+                 f"{r['tb_payload_match']}/{r['tx_sent']} beacons decoded, ")
+              + "launches " + " ".join(f"{k} {v}" for k, v in d.items()),
+              flush=True)
+    launches = counts()
+    report["runtime"] = {"path_s": path_s, "runs": runs, "launches": launches}
+    print(f"[{card}] runtime: 4 scenarios and 3 exchanges passed their gates "
+          f"in {path_s:.1f} s; launches on the path: "
+          + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches, catch
+
+
+def phase_runtime_card_vs_cpu(dev, card, report):
+    """The DECT-rate exchange on the card and on the CPU with the same
+    vspace draws (runtime_check.cpu_draws): equal RuntimeStats, detection
+    times and TBs."""
+    from dectnrp_tpu_torch import runtime_check as rc
+
+    exs = {}
+    for d in (dev, "cpu"):
+        exs[str(d)] = ex = rc.build("dect", d)
+        got = rc.run(ex, draws=rc.cpu_draws(ex, 3), ticks=40)
+        require(got["ok"], f"runtime card vs CPU: the {d} run failed its gate {got}")
+    diff = rc.differences(exs[str(dev)], exs["cpu"])
+    require(not diff, f"runtime card vs CPU: {diff}")
+    a = exs[str(dev)]
+    report["runtime_card_vs_cpu"] = {
+        "rx_stats": vars(a.rt_rx.stats),
+        "detection_times": a.rx_fw.detection_times,
+        "pdc_snr_db": {"card": a.rx_fw.pdc_snr_db,
+                       "cpu": exs["cpu"].rx_fw.pdc_snr_db}}
+    print(f"[{card}] runtime: the DECT-rate exchange decides the same on the "
+          "card as on the CPU (same draws): RuntimeStats, detection times "
+          f"{a.rx_fw.detection_times}, {len(a.rx_fw.tbs)} TBs", flush=True)
+
+
+def phase_runtime_kernels(dev, report, catch):
+    """The kernels on the inputs the runtime path handed them (caught in
+    phase_runtime), each held to its plain twin, then timed beside it and
+    its bound. B1 at every (K, rows) the path decoded: as one window
+    (K < 512: PCC 56 / 96, the minimum-length packet's PDC, the beacon's
+    PDC 480, the loopback firmware's 20-row batches), bit for bit its plain
+    twin and turbo._bcjr_posterior, and windowed at the 2 x 2 exchange's
+    PDC (K = 880), bit for bit its plain twin; B2 on a sync chunk [1, R, 2,496] at R = 1 and 2
+    (`_sync_check`); B3 on the 10/9 TX burst and the 9/10 front-end step
+    (history + 5,120 radio samples), bit for bit its tiled twin and within
+    POLY_TOL of its plain twin, conv1d beside it."""
+    from dectnrp_tpu_torch.kernels import graph_us
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+    from dectnrp_tpu_torch.phy.ops.polyphase import polyphase_fir, polyphase_fir_plain
+
+    out = {"bcjr": {}, "sync": {}, "polyphase": {}}
+    require({56, 96, 480} <= {K for K, _ in catch.bcjr} and catch.sync
+            and {(10, 9), (9, 10)} <= {k[:2] for k in catch.poly},
+            f"runtime: inputs not caught (bcjr {sorted(catch.bcjr)}, sync "
+            f"{sorted(catch.sync)}, polyphase {sorted(catch.poly)})")
+    for (K, rows), (route, Lsys, Lp) in sorted(catch.bcjr.items()):
+        windowed = K >= 512
+        lw = (128, 32) if windowed else (K + 3, 0)
+        require(route.func is bcjr_cuda.bcjr_posterior_cm
+                and route.keywords == {"K": K, "Lw": lw[0], "D": lw[1]},
+                f"runtime BCJR K={K}: the decoder does not take the kernel")
+        got = route(Lsys, Lp)
+        twin = bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, *lw)
+        if windowed:
+            def plain():
+                return bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, *lw)
+            unw = twin
+        else:
+            Ls_r, Lp_r = Lsys.T.contiguous(), Lp.T.contiguous()
+            La = torch.zeros((rows, K), device=dev)
+
+            def plain():
+                return _bcjr_posterior(Ls_r, Lp_r, La, K)
+            unw = plain().T
+        torch.cuda.synchronize()
+        label = f"K{K}_{rows}{'cb' if windowed else 'rows_one_window'}"
+        err = (got - twin).abs().max().item()
+        require(torch.isfinite(got).all() and torch.equal(got, twin)
+                and torch.equal(got, unw), f"runtime BCJR {label}: kernel vs "
+                f"plain twin max |err| {err}, vs turbo._bcjr_posterior "
+                f"{(got - unw).abs().max().item()} (must be 0)")
+        b_ms, b_by = bound(*bcjr_work(K, rows, windowed))
+        out["bcjr"][label] = {
+            "max_abs_err": err, "ms": 1e-3 * graph_us(lambda: route(Lsys, Lp)),
+            "eager_ms": cuda_ms(lambda: route(Lsys, Lp)),
+            "plain_ms": cuda_ms(plain, reps=3, warm=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    for shape, (s, ys) in sorted(catch.sync.items()):
+        label = f"{list(shape)}_b{s.P // 16}".replace(" ", "")
+        err, err_t = _sync_check(s, ys, f"runtime_{label}", report)
+        sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold,
+                 s.params.metric_max)
+        b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
+        out["sync"][label] = {
+            "max_abs_err": err, "max_abs_err_tiled": err_t,
+            "ms": 1e-3 * graph_us(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "eager_ms": cuda_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "plain_ms": 1e-3 * graph_us(
+                lambda: sync_detect.detect_sm_plain(ys, *sargs), reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    for (L_, M_, shape), (G, m0, n_out, x) in sorted(catch.poly.items()):
+        label = f"{L_}/{M_}_{list(shape)}".replace(" ", "")
+        got = polyphase_fir(x, G, L_, M_, m0, n_out)
+        want = polyphase_fir_plain(x, G, L_, M_, m0, n_out)
+        tiled = poly_tiled(x, G, L_, M_, m0, n_out)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_t = (got - tiled).abs().max().item()
+        require(torch.isfinite(got).all() and torch.allclose(got, want, **POLY_TOL)
+                and torch.equal(got, tiled), f"runtime polyphase {label}: kernel "
+                f"vs plain max |err| {err}, vs tiled twin {err_t} (must be 0)")
+        b_ms, b_by = bound(*poly_work(G, L_, x.numel() // x.shape[-1],
+                                      x.shape[-1], n_out))
+        out["polyphase"][label] = {
+            "max_abs_err": err, "max_abs_err_tiled": err_t,
+            **poly_times(x, G, L_, M_, m0, n_out), "bound_ms": b_ms,
+            "bound_by": b_by}
+    return out
+
+
+def phase_runtime_stages(dev, card, report):
+    """Where a runtime tick's host time goes, per layer: one exchange at
+    each rate (40 ticks) with every stage wrapped in device synchronizations
+    and host clocks: the vspace tick (TX assembly, the ether on the card,
+    the RX rings), the 9/10 front end, sync per chunk, the PCC stage's and
+    the PDC stage's stream RX, TX synthesis (with the 10/9 resampler at
+    1.92 Ms/s) and scheduling, and the firmware callbacks; the rest of the
+    tick is the runtime's own host logic. The synchronizations lengthen
+    the ticks; their unwrapped time is phase 6d's."""
+    from dectnrp_tpu_torch import runtime_check as rc
+    from dectnrp_tpu_torch.upper.runtime import _min_len_psdef
+
+    res = {}
+    for kind in ("dect", "sdr"):
+        ex = rc.build(kind, dev)
+        acc, n = Counter(), Counter()
+
+        def timed(fn, key):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                acc[key] += (time.perf_counter() - t0) * 1e3
+                n[key] += 1
+                return out
+            return call
+
+        ex.drv.vspace.tick = timed(ex.drv.vspace.tick, "vspace_tick")
+        for rt in (ex.rt_tx, ex.rt_rx):
+            rt._sync = timed(rt._sync, "sync")
+            if not rt.plan_tx.identity:
+                rt._rx_step = timed(rt._rx_step, "resample_rx")
+
+            def rx_stream(psdef, *a, rt=rt, orig=rt._rx_stream):
+                pcc = psdef == _min_len_psdef(rt.u, rt.b, psdef.tm_mode_index)
+                return timed(orig, "pcc" if pcc else "pdc")(psdef, *a)
+            rt._rx_stream = rx_stream
+            rt._transmit = timed(rt._transmit, "tx")
+            for name in ("work_start", "work_regular", "work_irregular",
+                         "work_pcc", "work_pcc_error", "work_pdc",
+                         "work_pdc_error"):
+                setattr(rt.tpoint, name, timed(getattr(rt.tpoint, name),
+                                               "firmware"))
+        got = rc.run(ex, ticks=40, sync=torch.cuda.synchronize)
+        require(got["ok"], f"runtime stages {kind}: the exchange failed {got}")
+        total = sum(ex.tick_ms[1:])
+        first = ex.tick_ms[0]
+        stages = {k: {"ms": v, "calls": n[k]} for k, v in acc.items()}
+        other = total + first - sum(acc.values())
+        res[kind] = {"ticks": len(ex.tick_ms), "total_ms": total + first,
+                     "first_tick_ms": first, "stages": stages,
+                     "runtime_host_ms": other}
+        print(f"[{card}] runtime stages, {kind} exchange, 40 ticks with each "
+              f"stage synchronized ({total + first:.1f} ms, first tick "
+              f"{first:.1f}): " + "; ".join(
+                  f"{k} {v['ms']:.1f} ms / {v['calls']} calls"
+                  for k, v in sorted(stages.items(), key=lambda kv: -kv[1]["ms"]))
+              + f"; runtime host logic {other:.1f} ms", flush=True)
+    report["runtime_stages"] = res
+
+
+def phase_profile_runtime(dev, card, report):
+    """torch.profiler over one beacon exchange at each rate (runtime_check,
+    built and run until every beacon is decoded): device events, busy ms,
+    idle share."""
+    from dectnrp_tpu_torch import runtime_check as rc
+
+    res = {}
+    for kind in ("dect", "sdr"):
+        ev, wall_ms, busy_ms, top = profile_device(
+            lambda: rc.run(rc.build(kind, dev)), f"runtime {kind}")
+        res[kind] = {"wall_ms": wall_ms, "n_device_events": len(ev),
+                     "busy_union_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+                     "top": [[n, c, ms] for n, (c, ms) in top]}
+        print(f"[{card}] profile (torch.profiler, device activity, one {kind} "
+              f"exchange incl. its build): {len(ev)} device events, busy "
+              f"{busy_ms:.1f} ms in {wall_ms:.1f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}; top: " + "; ".join(
+                  f"{n[:48]} x{c} {ms:.2f} ms" for n, (c, ms) in top[:5]),
+              flush=True)
+    (OUT / "profile_runtime.json").write_text(json.dumps(res, indent=1))
+    report["runtime_profile"] = res
 
 
 def main() -> int:
@@ -1260,6 +1670,13 @@ def main() -> int:
     # the path itself, counted
     phase_loopback_card_vs_cpu(dev, card, report)
     launches["loopback_snr"] = phase_loopback(dev, card, report)
+
+    # ---- 6d. the runtime path: the scenario runner over the committed
+    # simulator configurations and the runtime exchanges, counted; then the
+    # DECT-rate exchange on the card == on the CPU
+    launches["runtime"], rt_catch = phase_runtime(dev, card, report)
+    phase_runtime_card_vs_cpu(dev, card, report)
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 7. times [card]
     order = ("tx", "resample_up", "scatter", "awgn", "resample_down", "sync",
@@ -1449,10 +1866,28 @@ def main() -> int:
               for kern, by in lb_times.items() for k, v in by.items()), flush=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
+    # ---- 7c. the kernels on the inputs the runtime path handed them
+    rt_times = phase_runtime_kernels(dev, report, rt_catch)
+    report["kernel_ms"]["runtime"] = rt_times
+    print(f"[{card}] kernels on the runtime path's inputs, each equal to its "
+          "plain twin (B1 bit for bit, B2 rtol 2e-3 atol 2e-4 off gate ties, B3 "
+          "bit for bit its tiled twin and rtol 2e-5 atol 2e-5 its plain twin); "
+          "max |err|, graph replay (eager) vs plain twin[, conv1d], bound: "
+          + "; ".join(
+              f"{kern} {k} {v['max_abs_err']:.3g}, {v['ms'] * 1e3:.1f} us "
+              f"({v['eager_ms'] * 1e3:.1f}) vs {v['plain_ms']:.3f} ms"
+              + (f", {v['library_ms'] * 1e3:.1f} us" if v.get("library_ms") else "")
+              + f", {v['bound_ms'] * 1e3:.3f} us {v['bound_by']}"
+              for kern, by in rt_times.items() for k, v in by.items()), flush=True)
+    # ---- 7d. where a runtime tick's host time goes, by layer
+    phase_runtime_stages(dev, card, report)
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
     # ---- 8. profiles
     phase_profile(step, "flagship", B_FLAG, dev, gen, card, report)
     phase_profile(wall, "wall", B_WALL, dev, gen, card, report)
     phase_profile_loopback(dev, card, report)
+    phase_profile_runtime(dev, card, report)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     def total(key):
@@ -1471,7 +1906,8 @@ def main() -> int:
          "plain_ms": bcjr_plain_ms,
          "bound_ms": bcjr_bound[0], "bound_by": bcjr_bound[1],
          "library_ms": None, "one_window": one_window,
-         "loopback": loopback_entry(lb_times["bcjr"])},
+         "loopback": path_entry(lb_times["bcjr"]),
+         "runtime": path_entry(rt_times["bcjr"])},
         {"name": "bcjr_posterior_cm_bf16", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:188",
@@ -1482,7 +1918,7 @@ def main() -> int:
          "blocks_per_sm": report["bcjr_bf16_blocks_per_sm"],
          "shapes": {k: {kk: v[kk] for kk in ("ms", "bcjr_ms", "bound_ms")}
                     for k, v in bf16_shapes.items()},
-         "loopback": {}},
+         "loopback": {}, "runtime": {}},
         {"name": "sync_detect_sm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",
          "replaces": "dectnrp_tpu/phy/ops/sync_detect.py:62",
@@ -1495,7 +1931,8 @@ def main() -> int:
          "shapes": {k: {kk: v[kk] for kk in ("ms", "eager_ms", "plain_ms",
                                              "bound_ms")}
                     for k, v in sync_times.items()},
-         "loopback": loopback_entry(lb_times["sync"])},
+         "loopback": path_entry(lb_times["sync"]),
+         "runtime": path_entry(rt_times["sync"])},
         {"name": "polyphase_fir", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
          "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",
@@ -1506,7 +1943,8 @@ def main() -> int:
          "shapes": {k: {kk: v[kk] for kk in ("ms", "eager_ms", "plain_ms",
                                              "library_ms", "bound_ms")}
                     for k, v in poly.items()},
-         "loopback": loopback_entry(lb_times["polyphase"])}]}
+         "loopback": path_entry(lb_times["polyphase"]),
+         "runtime": path_entry(rt_times["polyphase"])}]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,136 @@
+"""Simulated radio: a node in the virtual space (port of
+dectnrp_tpu/radio/hw_simulator.py; reference lib/src/radio/hw_simulator.cpp).
+
+The reference runs TX/RX pthreads that exchange one spp per tick with
+vspace_t in lock-step; here `SimDriver.tick()` advances all nodes
+synchronously: each node's TX spp is assembled from its scheduled bursts
+(zeros in between, like work_tx sending zeros until tx_time_64,
+hw_simulator.cpp:370-619), pushed through the vspace superposition on the
+space's device, and the result is appended to each node's RX ring.
+
+The RX ring (reference buffer_rx_t: one shared ring, global time IS the
+sample counter) is a host numpy array window with an absolute-time origin,
+as in the JAX package. Each tick moves the [N, A, spp] TX block to the
+device and the RX block back, once each.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..simulation.vspace import VNodeConfig, VSpace, VSpaceConfig
+from .hw import Hw
+
+
+@dataclass
+class TxBurst:
+    tx_time: int               # global sample count of first sample
+    iq: np.ndarray             # [A, n]
+    order_id: int = 0
+
+
+class HwSimulator(Hw):
+    """One simulated node; TX bursts in, RX ring out. `device` is where
+    its samples are processed (set by SimDriver to the space's device)."""
+
+    def __init__(self, n_ant: int = 1, rx_ring_len: int = 1 << 20,
+                 name: str = "simulator"):
+        super().__init__(name, n_ant_max=n_ant, calibration="simulator")
+        self.n_ant = n_ant
+        self._bursts: list[TxBurst] = []
+        self._order_cnt = 0
+        self.rx_ring_len = rx_ring_len
+        self.rx_ring: np.ndarray | None = None
+        self.rx_time = 0           # global time of rx_ring[..., 0]
+        self.rx_filled = 0
+        self.device = torch.device("cuda")
+
+    # --- TX side ------------------------------------------------------------
+    def tx_schedule(self, tx_time: int, iq: np.ndarray) -> int:
+        """Schedule a burst; returns its tx_order_id (buffer_tx_meta_t)."""
+        assert iq.ndim == 2 and iq.shape[0] == self.n_ant
+        oid = self._order_cnt
+        self._order_cnt += 1
+        self._bursts.append(TxBurst(tx_time, np.asarray(iq, np.complex64), oid))
+        return oid
+
+    def assemble_tx_spp(self, t0: int, spp: int) -> np.ndarray:
+        """[A, spp] samples for global window [t0, t0+spp): scheduled bursts
+        over zeros; fully-transmitted bursts are retired."""
+        out = np.zeros((self.n_ant, spp), np.complex64)
+        keep = []
+        for b in self._bursts:
+            n = b.iq.shape[1]
+            s = max(b.tx_time, t0)
+            e = min(b.tx_time + n, t0 + spp)
+            if s < e:
+                out[:, s - t0:e - t0] += b.iq[:, s - b.tx_time:e - b.tx_time]
+            if b.tx_time + n > t0 + spp:
+                keep.append(b)
+        self._bursts = keep
+        return out
+
+    # --- RX side ------------------------------------------------------------
+    def push_rx_spp(self, spp_iq: np.ndarray) -> None:
+        if self.rx_ring is None:
+            self.rx_ring = np.zeros((self.n_ant, self.rx_ring_len), np.complex64)
+        n = spp_iq.shape[1]
+        if self.rx_filled + n > self.rx_ring_len:
+            # slide the window (oldest samples fall out of the ring)
+            drop = self.rx_filled + n - self.rx_ring_len
+            self.rx_ring[:, :-drop] = self.rx_ring[:, drop:]
+            self.rx_time += drop
+            self.rx_filled -= drop
+        self.rx_ring[:, self.rx_filled:self.rx_filled + n] = spp_iq
+        self.rx_filled += n
+
+    def get_rx_stream(self, t0: int, n: int) -> np.ndarray:
+        """[A, n] samples for global window [t0, t0+n) (must be in the ring)."""
+        off = t0 - self.rx_time
+        assert 0 <= off and off + n <= self.rx_filled, \
+            f"window [{t0},{t0+n}) outside ring [{self.rx_time},{self.rx_time+self.rx_filled})"
+        return self.rx_ring[:, off:off + n]
+
+    @property
+    def rx_time_passed(self) -> int:
+        return self.rx_time + self.rx_filled
+
+
+class SimDriver:
+    """Lock-steps N HwSimulator nodes through a VSpace on `device`."""
+
+    def __init__(self, cfg: VSpaceConfig, hws: list[HwSimulator],
+                 node_cfgs: list[VNodeConfig] | None = None,
+                 device: torch.device | str = "cuda"):
+        self.hws = hws
+        node_cfgs = node_cfgs or [VNodeConfig(n_ant=h.n_ant) for h in hws]
+        self.vspace = VSpace(cfg, node_cfgs, device)
+        self.spp = cfg.spp_len
+        for h in hws:
+            h.samp_rate = int(cfg.samp_rate)
+            h.device = self.vspace.device
+
+    @property
+    def now(self) -> int:
+        return self.vspace.now
+
+    def tick(self, draws: dict | None = None) -> None:
+        """One spp period; `draws` (vspace.draw_tick's dict) replaces the
+        space's own draws for this tick."""
+        t0 = self.vspace.now
+        A = self.vspace.A
+        tx = np.zeros((len(self.hws), A, self.spp), np.complex64)
+        for i, h in enumerate(self.hws):
+            tx[i, :h.n_ant] = h.assemble_tx_spp(t0, self.spp)
+        rx = self.vspace.tick(torch.from_numpy(tx).to(self.vspace.device),
+                              draws).cpu().numpy()
+        for i, h in enumerate(self.hws):
+            h.push_rx_spp(rx[i, :h.n_ant])
+            h.now = self.vspace.now
+            h.apply_due_commands(self.vspace.now)
+
+    def run_until(self, t: int) -> None:
+        while self.vspace.now < t:
+            self.tick()

@@ -433,3 +433,31 @@ def test_loopback_point_card_matches_cpu(dev, variant):
     assert d[1] > 0 and d[0] >= d[1] and d[2] == 0, d
     assert d[3] == (1 if kw.get("use_sync") else 0), d
     assert d[4] == (2 if kw.get("resampler_loop") else 0), d
+
+
+@pytest.mark.parametrize("kind", ["dect", "sdr"])
+def test_runtime_exchange_card_matches_cpu(dev, kind):
+    """The beacon exchange (runtime_check) on the card and on the CPU with
+    the same vspace draws: every beacon decoded with its payload, equal
+    RuntimeStats, detection times and TBs; the sync and BCJR kernels
+    launched, the polyphase kernel only at 1.92 Ms/s."""
+    from dectnrp_tpu_torch import runtime_check as rc
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
+
+    runs = {}
+    for d in (dev, "cpu"):
+        ex = rc.build(kind, d)
+        c0 = (sync_detect.launches, bcjr_cuda.launches_one_window,
+              polyphase.launches, bcjr_cuda.launches_bf16)
+        got = rc.run(ex, draws=rc.cpu_draws(ex, 3), ticks=40)
+        assert got["ok"], got
+        runs[str(d)] = ex
+        if d is dev:
+            c1 = (sync_detect.launches, bcjr_cuda.launches_one_window,
+                  polyphase.launches, bcjr_cuda.launches_bf16)
+            n = [x - y for x, y in zip(c1, c0)]
+            assert n[0] == ex.rt_tx.stats.chunks + ex.rt_rx.stats.chunks
+            assert n[1] > 0 and n[3] == 0
+            assert (n[2] > 0) == (kind == "sdr"), n
+    assert rc.differences(runs[str(dev)], runs["cpu"]) == []

@@ -33,7 +33,18 @@ COPIES = sorted(f"sections/part3/{p.name}" for p in
     "phy/packet_config.py", "phy/chestim.py", "phy/filters.py",
     "phy/fec/qpp.py", "phy/fec/crc.py", "phy/fec/rate_match.py",
     "phy/fec/turbo_np.py", "sections/part4/identity.py",
-    "sections/part4/feedback_info.py", "sections/part4/plcf.py"]
+    "sections/part4/feedback_info.py", "sections/part4/plcf.py",
+    # the runtime slice's numpy layers: MAC codecs, radio, topology, AGC,
+    # the tpoint interface, the firmwares and the MAC helpers
+    "sections/part2.py", "sections/part4/__init__.py",
+    "sections/part4/mac_pdu.py", "sections/part4/mmie.py",
+    "sections/part4/ies.py", "sections/part4/ies2.py",
+    "sections/part4/association.py", "sections/part4/mac_pdu_decoder.py",
+    "common/json_export.py", "radio/gain_lut.py", "radio/hw.py",
+    "radio/antenna_array.py", "simulation/topology.py", "phy/agc.py",
+    "upper/tpoint.py", "upper/p2p.py", "upper/misc.py",
+    "mac/allocation.py", "mac/contact_list.py", "mac/cqi.py", "mac/pll.py",
+    "mac/ppx.py"]
 # the resampler's ratios: get_resampler_fraction's set and the inverses
 RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),
           (9, 10), (27, 40), (9, 20), (27, 80), (1, 2)]
@@ -82,6 +93,15 @@ def test_numpy_copies_are_verbatim(path):
     included."""
     assert _code(ROOT / "dectnrp_tpu_torch" / path) == \
         _code(ROOT / "dectnrp_tpu" / path)
+
+
+def test_verified_hw_rates():
+    """radio/hw.py (a copy) takes its rate table from the port's resampler,
+    which keeps its own copy of the JAX resampler's."""
+    from dectnrp_tpu.phy import resampler as J
+    from dectnrp_tpu_torch.phy import resampler as T
+
+    assert T.VERIFIED_HW_RATES == J.VERIFIED_HW_RATES
 
 
 def test_packet_sizes_lattice():
@@ -251,10 +271,11 @@ def test_tables_to_device_keeps_values():
 
 def test_port_runs_without_jax():
     """A fresh interpreter imports the port, runs the small flagship- and
-    wall-shaped steps, one point of the FEC oracle (HARQ combining) and one
+    wall-shaped steps, one point of the FEC oracle (HARQ combining), one
     loopback point (upper/loopback.py: tm 2 through the doubly-selective
-    channel, sync and MMSE) end to end and loads neither jax (the card's
-    machine has none) nor the JAX package."""
+    channel, sync and MMSE) and the scenario runner (apps/dectnrp_main over
+    config and upper/runtime: one rtt_simulator round trip) end to end and
+    loads neither jax (the card's machine has none) nor the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, torch
@@ -301,6 +322,14 @@ def test_port_runs_without_jax():
                                       snr_db=(30.0,))
         pt = exp.run_point(1, 0, 30.0)
         assert pt.n == 4 and pt.n_pdc >= 2, pt
+        # the runtime slice: the scenario runner over the committed
+        # rtt_simulator, one datagram echoed over the air
+        from dectnrp_tpu_torch import config, runtime_check  # noqa: F401
+        from dectnrp_tpu_torch.apps import dectnrp_main
+        from dectnrp_tpu_torch.upper import runtime  # noqa: F401
+        _, recs = dectnrp_main.run(["configurations/rtt_simulator", "--ticks",
+                                    "12", "--device", "cpu", "--datagrams", "1"])
+        assert recs[0]["firmware"] == {"tx": 1, "rx": 1}, recs
         assert "jax" not in sys.modules, "the port loaded jax"
         assert "dectnrp_tpu" not in sys.modules, "the port loaded the JAX package"
         print("JAX_FREE_OK")
