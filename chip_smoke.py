@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Five main paths, each driven once through its entry points with every
+Six main paths, each driven once through its entry points with every
 kernel's launch count set to 0 just before it and read just after:
   flagship  make_flagship_step: u=1 b=16 SISO MCS4, B = 64 streams of
             T = 192,512 samples, 2 packets each, 15 dB, no resampler;
@@ -36,7 +36,14 @@ kernel's launch count set to 0 just before it and read just after:
             tools/run_tpu_runtime_check.py rebuilt on the port
             (runtime_check): 4 beacons between two nodes at 1.728 Ms/s and
             at 1.92 Ms/s (the 9/10 front end and the 10/9 TX resampler in
-            the loop), and 2 beacons of the 2 x 2 N_SS = 2 exchange.
+            the loop), and 2 beacons of the 2 x 2 N_SS = 2 exchange;
+  iq_ingress  the same runtime over the real-IQ radios (radio/hw_iq.py,
+            the native host runtime common/native.py built with g++) at
+            configurations/socket_radio's sizes, not cut: 1.92 Ms/s, spp
+            2048, a 1 Mi-sample ring, u = 1, b = 1, 1 antenna (4 on the
+            UDP egress): a cf32 file read free-running, socket_radio
+            through apps.dectnrp_main.run, the paced UDP egress looped into
+            the ingress, and apps.rtt through the application layer.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
@@ -115,6 +122,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and realtime multiple (spp / radio rate / tick time); then the
      DECT-rate exchange on the card and on the CPU with the same vspace
      draws: equal RuntimeStats, detection times and TBs;
+  6e. the iq_ingress path (phase_iq): (a) three packets (1, 1, 0, 2, 0, 2)
+     at 25 dB in a cf32 file read free-running: 3 of 3 TBs, 0 overruns,
+     the whole file delivered, RuntimeStats, detection times and TBs equal
+     to a CPU run on the same file, B2 once a chunk, B3 once a front-end
+     step and a TX burst, B1 as one window only, B4 never; (b)
+     socket_radio (a copy on a free UDP port), 24 ticks: >= 40,000 samples
+     back on the RX ring, chunks synced, 0 malformed; (c) three bursts
+     through the paced egress looped into the ingress: 0 malformed, late
+     or unsent (TBs decoded, overruns and seconds recorded, not gated:
+     they depend on the runtime's speed), and on 4 antennas the bursts
+     back bit for bit; (d) apps.rtt -> SocketServer -> TfwRtt over the
+     ether on the card -> echo -> SocketClient: >= 1 of 2 back;
   7. times with CUDA events / synchronized host clocks: each step's median
      over 5 steps, its realtime multiple B*T / step time / radio rate,
      per-stage times, and each kernel next to its plain twin, its bound on
@@ -155,6 +174,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      every stage synchronized and timed (vspace tick, the 9/10 front end,
      sync, the PCC and PDC stages, TX, firmware; the rest is the runtime's
      own host logic);
+  7e. the kernels on the inputs the iq_ingress path handed them, as 7c:
+     B1 one window at the PCC's and the PDCs' K on 1 row, B2 on a sync
+     chunk [1, 1, 2,496], B3 on the 9/10 front-end step and the 10/9 TX
+     burst;
   8. torch.profiler (device activity only) over one flagship and one wall
      step, one loopback point of `sync` and of `mimo_fading` (MCS 2 at
      the committed threshold, 500 packets) and one runtime exchange at each
@@ -285,6 +308,11 @@ def counts():
             "bcjr_one_window": bcjr_cuda.launches_one_window,
             "bcjr_bf16": bcjr_cuda.launches_bf16,
             "sync": sync_detect.launches, "polyphase": polyphase.launches}
+
+
+def launched_since(c0):
+    """Launches of each kernel since counts() returned c0."""
+    return {k: v - c0[k] for k, v in counts().items()}
 
 
 def zero_counts():
@@ -1064,8 +1092,23 @@ def phase_loopback_kernels(dev, report):
     return out
 
 
+def print_path_times(card, path, times):
+    """One line: the kernels on the inputs a path handed them (7c, 7e)."""
+    print(f"[{card}] kernels on the {path} path's inputs, each equal to its "
+          "plain twin (B1 bit for bit, B2 rtol 2e-3 atol 2e-4 off gate ties, B3 "
+          "bit for bit its tiled twin and rtol 2e-5 atol 2e-5 its plain twin); "
+          "max |err|, graph replay (eager) vs plain twin[, conv1d], bound: "
+          + "; ".join(
+              f"{kern} {k} {v['max_abs_err']:.3g}, {v['ms'] * 1e3:.1f} us "
+              f"({v['eager_ms'] * 1e3:.1f}) vs {v['plain_ms']:.3f} ms"
+              + (f", {v['library_ms'] * 1e3:.1f} us" if v.get("library_ms") else "")
+              + f", {v['bound_ms'] * 1e3:.3f} us {v['bound_by']}"
+              for kern, by in times.items() for k, v in by.items()), flush=True)
+
+
 def path_entry(times):
-    """A kernels line entry of one path's shapes (`loopback`, `runtime`):
+    """A kernels line entry of one path's shapes (`loopback`, `runtime`,
+    `iq_ingress`):
     per shape its max |err|, times and bound."""
     return {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "eager_ms", "plain_ms",
                                       "library_ms", "bound_ms", "bound_by")}
@@ -1161,8 +1204,8 @@ def rt_tick_stats(tick_ms, spp, rate, n_nodes):
 
 
 class RuntimeCatch:
-    """Catches, while a run goes, the first input of each shape that the
-    runtime hands B1 (the decoder's BCJR route, patched), B2 (the Sync
+    """Catches, while a run goes, the first card input of each shape that
+    the runtime hands B1 (the decoder's BCJR route, patched), B2 (the Sync
     modules) and B3 (the resamplers): a forward pre-hook on every module
     and a recording route. Nothing is launched for it."""
 
@@ -1175,6 +1218,8 @@ class RuntimeCatch:
         self._turbo, self._resolve = turbo, turbo._resolve_bcjr
 
         def hook(mod, args):
+            if not (args and torch.is_tensor(args[0]) and args[0].is_cuda):
+                return                      # a CPU twin run beside the path
             if isinstance(mod, Sync):
                 self.sync.setdefault(tuple(args[0].shape), (mod, args[0].clone()))
             elif isinstance(mod, ResamplerStream):
@@ -1230,7 +1275,7 @@ def phase_runtime(dev, card, report):
                 argv += ["--datagrams", str(n_dg)]
             run, recs = dectnrp_main.run(argv)
             torch.cuda.synchronize()
-            d = {k: v - c0[k] for k, v in counts().items()}
+            d = launched_since(c0)
             fws, rts = run.firmwares, run.runtimes
             extra_sync = 0
             if name == "rtt_simulator":
@@ -1263,7 +1308,7 @@ def phase_runtime(dev, card, report):
             c0, t0 = counts(), time.perf_counter()
             ex = rc.build(kind, dev)
             got = rc.run(ex, sync=torch.cuda.synchronize)
-            d = {k: v - c0[k] for k, v in counts().items()}
+            d = launched_since(c0)
             require(got["ok"] and got["tx_late"] == 0,
                     f"runtime exchange {kind}: not every beacon decoded with its "
                     f"payload, or a TX late ({got})")
@@ -1333,10 +1378,11 @@ def phase_runtime_card_vs_cpu(dev, card, report):
           f"{a.rx_fw.detection_times}, {len(a.rx_fw.tbs)} TBs", flush=True)
 
 
-def phase_runtime_kernels(dev, report, catch):
-    """The kernels on the inputs the runtime path handed them (caught in
-    phase_runtime), each held to its plain twin, then timed beside it and
-    its bound. B1 at every (K, rows) the path decoded: as one window
+def phase_runtime_kernels(dev, report, catch, path="runtime"):
+    """The kernels on the inputs the runtime path (or the iq_ingress path,
+    which runs the same runtime over the real-IQ radios) handed them
+    (caught in phase_runtime / phase_iq), each held to its plain twin, then
+    timed beside it and its bound. B1 at every (K, rows) the path decoded: as one window
     (K < 512: PCC 56 / 96, the minimum-length packet's PDC, the beacon's
     PDC 480, the loopback firmware's 20-row batches), bit for bit its plain
     twin and turbo._bcjr_posterior, and windowed at the 2 x 2 exchange's
@@ -1353,14 +1399,14 @@ def phase_runtime_kernels(dev, report, catch):
     out = {"bcjr": {}, "sync": {}, "polyphase": {}}
     require({56, 96, 480} <= {K for K, _ in catch.bcjr} and catch.sync
             and {(10, 9), (9, 10)} <= {k[:2] for k in catch.poly},
-            f"runtime: inputs not caught (bcjr {sorted(catch.bcjr)}, sync "
+            f"{path}: inputs not caught (bcjr {sorted(catch.bcjr)}, sync "
             f"{sorted(catch.sync)}, polyphase {sorted(catch.poly)})")
     for (K, rows), (route, Lsys, Lp) in sorted(catch.bcjr.items()):
         windowed = K >= 512
         lw = (128, 32) if windowed else (K + 3, 0)
         require(route.func is bcjr_cuda.bcjr_posterior_cm
                 and route.keywords == {"K": K, "Lw": lw[0], "D": lw[1]},
-                f"runtime BCJR K={K}: the decoder does not take the kernel")
+                f"{path} BCJR K={K}: the decoder does not take the kernel")
         got = route(Lsys, Lp)
         twin = bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, *lw)
         if windowed:
@@ -1378,7 +1424,7 @@ def phase_runtime_kernels(dev, report, catch):
         label = f"K{K}_{rows}{'cb' if windowed else 'rows_one_window'}"
         err = (got - twin).abs().max().item()
         require(torch.isfinite(got).all() and torch.equal(got, twin)
-                and torch.equal(got, unw), f"runtime BCJR {label}: kernel vs "
+                and torch.equal(got, unw), f"{path} BCJR {label}: kernel vs "
                 f"plain twin max |err| {err}, vs turbo._bcjr_posterior "
                 f"{(got - unw).abs().max().item()} (must be 0)")
         b_ms, b_by = bound(*bcjr_work(K, rows, windowed))
@@ -1389,7 +1435,7 @@ def phase_runtime_kernels(dev, report, catch):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     for shape, (s, ys) in sorted(catch.sync.items()):
         label = f"{list(shape)}_b{s.P // 16}".replace(" ", "")
-        err, err_t = _sync_check(s, ys, f"runtime_{label}", report)
+        err, err_t = _sync_check(s, ys, f"{path}_{label}", report)
         sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold,
                  s.params.metric_max)
         b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
@@ -1409,7 +1455,7 @@ def phase_runtime_kernels(dev, report, catch):
         err = (got - want).abs().max().item()
         err_t = (got - tiled).abs().max().item()
         require(torch.isfinite(got).all() and torch.allclose(got, want, **POLY_TOL)
-                and torch.equal(got, tiled), f"runtime polyphase {label}: kernel "
+                and torch.equal(got, tiled), f"{path} polyphase {label}: kernel "
                 f"vs plain max |err| {err}, vs tiled twin {err_t} (must be 0)")
         b_ms, b_by = bound(*poly_work(G, L_, x.numel() // x.shape[-1],
                                       x.shape[-1], n_out))
@@ -1503,6 +1549,266 @@ def phase_profile_runtime(dev, card, report):
               flush=True)
     (OUT / "profile_runtime.json").write_text(json.dumps(res, indent=1))
     report["runtime_profile"] = res
+
+
+# ---------------------------------------------------------------- iq_ingress
+
+# ticks of configurations/socket_radio through dectnrp_main.run: the TX
+# pacer starts within 0.25 s (a few ticks of RADIO_WAIT_S), then a tick
+# waits for spp = 2048 samples, so 40,000 samples arrive in ~20 ticks even
+# when the runtime keeps up with the radio
+SOCKET_TICKS = 24
+
+
+def phase_iq(dev, card, report):
+    """The iq_ingress path: the runtime over the real-IQ radios (radio/
+    hw_iq.py over the native host runtime) at the socket_radio
+    configuration's sizes (1.92 Ms/s, spp 2048, 1 Mi-sample ring, u = 1,
+    b = 1, chunk 2048 + 4 * 112, 1 antenna), each part gated:
+      (a) three packets of iq_check.PSDEF synthesized and resampled 10/9 on
+          the card, written to a cf32 file at 25 dB, read free-running by
+          HwIqStream into NodeRuntime on the card: all 3 TBs, no overrun,
+          the whole file delivered, and the same RuntimeStats, detection
+          times and TBs as on the CPU; B2 once a chunk, B3 once a 5,120-
+          sample front-end step and once a TX burst, B1 as one window
+          only, B4 never;
+      (b) configurations/socket_radio through apps.dectnrp_main.run (a copy
+          with a free UDP port): its paced TX zeros come back on its RX
+          ring (>= 40,000 samples), the runtime syncs chunks, nothing
+          malformed;
+      (c) three bursts through the paced UDP egress looped into the
+          ingress, the runtime decoding as they arrive: nothing malformed,
+          late or unsent (the TBs decoded, the overruns and the seconds
+          are recorded: they depend on the runtime's speed); and the same
+          bursts on 4 antennas from a 4-antenna egress (65,536-byte chunks
+          split into whole-sample datagrams) back bit for bit on a
+          4-antenna ring;
+      (d) apps.rtt through the application layer: SocketServer -> node 0's
+          TfwRtt -> the virtual ether on the card -> node 1's echo ->
+          SocketClient -> run_rtt, >= 1 of 2 datagrams back.
+    The PHY modules are built and run once before it starts (iq_check.
+    prewarm). Returns (launches on the path, the card inputs caught)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from dectnrp_tpu_torch import iq_check as iq
+    from dectnrp_tpu_torch.application.socket_app import SocketClient, SocketServer
+    from dectnrp_tpu_torch.apps import dectnrp_main
+    from dectnrp_tpu_torch.apps.rtt import run_rtt
+    from dectnrp_tpu_torch.common.native import (NativeIqSocketProducer,
+                                                 NativeRingBuffer,
+                                                 NativeTxConsumer,
+                                                 native_available)
+    from dectnrp_tpu_torch.radio.hw_iq import write_iq_file
+    from dectnrp_tpu_torch.radio.hw_simulator import HwSimulator, SimDriver
+    from dectnrp_tpu_torch.simulation.topology import Position, Trajectory
+    from dectnrp_tpu_torch.simulation.vspace import VNodeConfig, VSpaceConfig
+    from dectnrp_tpu_torch.upper.misc import TfwRtt
+    from dectnrp_tpu_torch.upper.runtime import NodeRuntime
+
+    require(native_available(), "iq_ingress: the native host runtime "
+            "(native/dectnrp_rt.cc) did not build")
+    iq.prewarm(dev)
+    res = {}
+    tmp = tempfile.TemporaryDirectory()
+    zero_counts()
+    catch = RuntimeCatch()
+    t_path = time.perf_counter()
+    try:
+        # (a) file ingress, free-running, on the card and on the CPU
+        c0, t0 = counts(), time.perf_counter()
+        stream, payloads = iq.ingress_stream(device=dev)
+        path = pathlib.Path(tmp.name) / "ingress_1p92.cf32"
+        n_chunks = write_iq_file(path, stream, spp=iq.SPP)
+        hw, rt, fw = iq.run_file(path, payloads, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        d = launched_since(c0)
+        t1 = time.perf_counter()
+        _, rt_c, fw_c = iq.run_file(path, payloads, "cpu")
+        cpu_secs = time.perf_counter() - t1
+        require(fw.tb_match == len(payloads) == 3 and hw.read_overruns == 0
+                and hw.rx_time_passed == n_chunks * iq.SPP,
+                f"iq_ingress file: {fw.tb_match}/3 TBs, {hw.read_overruns} "
+                f"overruns, {hw.rx_time_passed} of {n_chunks * iq.SPP} samples "
+                f"delivered ({rt.stats})")
+        require(vars(rt.stats) == vars(rt_c.stats)
+                and fw.detection_times == fw_c.detection_times
+                and len(fw.tbs) == len(fw_c.tbs)
+                and all(np.array_equal(a, b) for a, b in zip(fw.tbs, fw_c.tbs)),
+                f"iq_ingress file: the card decides otherwise than the CPU "
+                f"({rt.stats} / {rt_c.stats}; {fw.detection_times} / "
+                f"{fw_c.detection_times})")
+        pumps = rt_pumps([rt])
+        require(d["sync"] == rt.stats.chunks and d["polyphase"] == pumps + 3
+                and d["bcjr_one_window"] > 0 and d["bcjr"] == d["bcjr_one_window"]
+                and d["bcjr_bf16"] == 0,
+                f"iq_ingress file: kernels not launched as expected ({d}; sync "
+                f"{rt.stats.chunks}, polyphase {pumps} front-end steps + 3 TX "
+                "bursts, bcjr as one window only, bcjr_bf16 0)")
+        res["file"] = {"samples": hw.rx_time_passed, "tb_decoded": fw.tb_match,
+                       "read_overruns": hw.read_overruns,
+                       "stats": vars(rt.stats),
+                       "detection_times": fw.detection_times,
+                       "front_end_steps": pumps, "launches": d,
+                       "seconds": secs, "cpu_seconds": cpu_secs,
+                       "realtime_multiple": hw.rx_time_passed / iq.RATE / secs}
+        print(f"[{card}] iq_ingress (a) file ingress, free-running: "
+              f"{fw.tb_match}/3 TBs, {rt.stats.chunks} chunks, {pumps} front-"
+              f"end steps, 0 overruns, {secs:.2f} s on the card (TX synthesis "
+              f"included; CPU {cpu_secs:.2f} s), decisions equal to the CPU's "
+              f"(detections at {fw.detection_times}); launches "
+              + " ".join(f"{k} {v}" for k, v in d.items()), flush=True)
+
+        # (b) configurations/socket_radio through the scenario runner
+        c0, t0 = counts(), time.perf_counter()
+
+        def run_socket_radio(port):
+            cfg = pathlib.Path(tmp.name) / f"socket_radio_{port}"
+            shutil.copytree(ROOT / "configurations" / "socket_radio", cfg)
+            radio = json.loads((cfg / "radio.json").read_text())
+            radio["hws"][0].update(rx_port=port, tx_sink=f"udp:{port}")
+            (cfg / "radio.json").write_text(json.dumps(radio))
+            return dectnrp_main.run([str(cfg), "--ticks", str(SOCKET_TICKS),
+                                     "--device", str(dev)])
+        run, recs = iq.on_free_port(run_socket_radio)
+        try:
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            hw, rt = run.hws[0], run.runtimes[0]
+            d = launched_since(c0)
+            pumps = rt_pumps([rt])
+            require(hw.rx_time_passed >= 40000 and rt.stats.chunks > 0
+                    and hw.producer.malformed == 0 and run.driver is None,
+                    f"iq_ingress socket_radio: {hw.rx_time_passed} samples, "
+                    f"{rt.stats.chunks} chunks, {hw.producer.malformed} malformed")
+            # an overrun skips front-end steps the ring no longer holds: B3
+            # runs once a step that was read
+            require(d["sync"] == rt.stats.chunks and 0 < d["polyphase"] <= pumps
+                    and (d["polyphase"] == pumps or hw.read_overruns > 0)
+                    and d["bcjr_bf16"] == 0,
+                    f"iq_ingress socket_radio: kernels not launched as expected "
+                    f"({d}; sync {rt.stats.chunks}, polyphase {pumps} steps, "
+                    f"fewer only after an overrun ({hw.read_overruns}))")
+            res["socket_radio"] = {
+                "ticks": SOCKET_TICKS, "samples": hw.rx_time_passed,
+                "datagrams": hw.producer.datagrams,
+                "malformed": hw.producer.malformed,
+                "read_overruns": hw.read_overruns, "stats": vars(rt.stats),
+                "front_end_steps": pumps, "launches": d, "seconds": secs,
+                "tick_ms_median": statistics.median(run.tick_ms),
+                "tick_ms_max": max(run.tick_ms)}
+        finally:
+            run.close()
+        print(f"[{card}] iq_ingress (b) configurations/socket_radio, "
+              f"{SOCKET_TICKS} ticks through dectnrp_main.run: "
+              f"{res['socket_radio']['samples']} samples back on the RX ring, "
+              f"{rt.stats.chunks} chunks, 0 malformed, "
+              f"{res['socket_radio']['read_overruns']} overruns, {secs:.2f} s; "
+              "launches " + " ".join(f"{k} {v}" for k, v in d.items()), flush=True)
+
+        # (c) paced UDP egress looped into the ingress, and 4 antennas
+        c0 = counts()
+        bursts, payloads, _ = iq.packet_bursts(3, 11, dev)
+        lb = iq.socket_loopback(bursts, payloads, dev)
+        torch.cuda.synchronize()
+        lb["launches"] = launched_since(c0)
+        require(lb["malformed"] == 0 and lb["late_bursts"] == 0
+                and lb["send_errors"] == 0 and lb["order_violations"] == 0
+                and lb["launches"]["bcjr_bf16"] == 0,
+                f"iq_ingress loopback: the wire failed {lb}")
+        n_ant, n_up = 4, bursts[0].shape[-1]
+        ring = NativeRingBuffer(iq.RING, n_ant)
+        try:
+            prod, port = iq.on_free_port(lambda p: (NativeIqSocketProducer(
+                ring, p, max_samples_per_dgram=4096), p))
+            txc = NativeTxConsumer(f"udp:{port}", n_ant=n_ant, spp=iq.SPP,
+                                   rate_hz=float(iq.RATE), deferred_start=True)
+            rot = np.exp(0.5j * np.pi * np.arange(n_ant))[:, None]
+            b4 = [(b * rot).astype(np.complex64) for b in bursts]
+            times = [iq.SPP + i * (n_up + iq.GAP) for i in range(len(b4))]
+            for i, (t, b) in enumerate(zip(times, b4)):
+                txc.schedule(i, t, b)
+            txc.start()
+            end, deadline = times[-1] + n_up, time.time() + 10.0
+            while ring.time < end + iq.SPP and time.time() < deadline:
+                time.sleep(0.01)
+            wire = {"samples": ring.time, "late_bursts": txc.late_bursts,
+                    "send_errors": txc.send_errors,
+                    "malformed": prod.malformed,
+                    "bit_equal": ring.time >= end and all(
+                        np.array_equal(ring.read(t, n_up), b)
+                        for t, b in zip(times, b4))}
+            txc.close()
+        finally:
+            ring.close()
+        require(wire["bit_equal"] and wire["late_bursts"] == 0
+                and wire["send_errors"] == 0 and wire["malformed"] == 0,
+                f"iq_ingress 4-antenna egress: {wire}")
+        lb["four_antennas"] = wire
+        res["loopback"] = lb
+        print(f"[{card}] iq_ingress (c) paced UDP egress looped into the "
+              f"ingress: {lb['tb_decoded']}/3 TBs decoded in {lb['seconds']:.2f} "
+              f"s, {lb['read_overruns']} overruns (recorded, not gated), 0 "
+              f"malformed / late / unsent; 4 antennas: 3 bursts back bit for "
+              f"bit; launches " + " ".join(f"{k} {v}" for k, v
+                                           in lb["launches"].items()), flush=True)
+
+        # (d) apps.rtt over the air through the application layer
+        c0, t0 = counts(), time.perf_counter()
+        hws = [HwSimulator(1), HwSimulator(1)]
+        drv = SimDriver(VSpaceConfig(samp_rate=1_728_000.0, spp_len=2048,
+                                     noise_var=1e-8), hws,
+                        [VNodeConfig(1, Trajectory(Position(0, 0, 0))),
+                         VNodeConfig(1, Trajectory(Position(1.0, 0, 0)))], dev)
+        srv, out_srv = SocketServer([0]), SocketServer([0])
+        net = iq.IDENT.network_id
+        try:
+            fw0, fw1 = TfwRtt(net, 0x2222), TfwRtt(net, 0x3333, echo=True)
+            rt0 = NodeRuntime(hws[0], fw0, net, app_server=srv,
+                              app_client=SocketClient(out_srv.bound_ports),
+                              device=dev)
+            rt1 = NodeRuntime(hws[1], fw1, net, device=dev)
+            got = {}
+            th = threading.Thread(target=lambda: got.setdefault("res", run_rtt(
+                srv.bound_ports[0], out_srv.bound_ports[0], n=2,
+                payload_bytes=24, timeout_s=30.0)), daemon=True)
+            th.start()
+            ticks = 0
+            while th.is_alive() and ticks < 400:
+                drv.tick()
+                rt0.process()
+                rt1.process()
+                ticks += 1
+            th.join(timeout=35.0)
+        finally:
+            srv.stop()
+            out_srv.stop()
+        torch.cuda.synchronize()
+        rtt = got.get("res")
+        d = launched_since(c0)
+        require(rtt is not None and rtt.n >= 1 and d["bcjr_bf16"] == 0,
+                f"iq_ingress rtt: no datagram came back ({fw0.stats}, "
+                f"{fw1.stats}, {rt0.stats}, {rt1.stats})")
+        res["rtt"] = {**rtt.summary(), "ticks": ticks, "launches": d,
+                      "seconds": time.perf_counter() - t0,
+                      "stats": [vars(rt0.stats), vars(rt1.stats)]}
+        print(f"[{card}] iq_ingress (d) apps.rtt over the air through the "
+              f"application layer: {rtt.n}/2 back ({rtt.summary()}), {ticks} "
+              "ticks; launches " + " ".join(f"{k} {v}" for k, v in d.items()),
+              flush=True)
+    finally:
+        catch.close()
+        tmp.cleanup()
+    launches = counts()
+    res["path_s"] = time.perf_counter() - t_path
+    res["launches"] = launches
+    report["iq_ingress"] = res
+    print(f"[{card}] iq_ingress: (a)-(d) passed their gates in "
+          f"{res['path_s']:.1f} s; launches on the path: "
+          + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches, catch
 
 
 def main() -> int:
@@ -1676,6 +1982,11 @@ def main() -> int:
     # DECT-rate exchange on the card == on the CPU
     launches["runtime"], rt_catch = phase_runtime(dev, card, report)
     phase_runtime_card_vs_cpu(dev, card, report)
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    # ---- 6e. the real-IQ radios: file and UDP ingress, the paced egress,
+    # configurations/socket_radio and the application layer, counted
+    launches["iq_ingress"], iq_catch = phase_iq(dev, card, report)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 7. times [card]
@@ -1869,18 +2180,13 @@ def main() -> int:
     # ---- 7c. the kernels on the inputs the runtime path handed them
     rt_times = phase_runtime_kernels(dev, report, rt_catch)
     report["kernel_ms"]["runtime"] = rt_times
-    print(f"[{card}] kernels on the runtime path's inputs, each equal to its "
-          "plain twin (B1 bit for bit, B2 rtol 2e-3 atol 2e-4 off gate ties, B3 "
-          "bit for bit its tiled twin and rtol 2e-5 atol 2e-5 its plain twin); "
-          "max |err|, graph replay (eager) vs plain twin[, conv1d], bound: "
-          + "; ".join(
-              f"{kern} {k} {v['max_abs_err']:.3g}, {v['ms'] * 1e3:.1f} us "
-              f"({v['eager_ms'] * 1e3:.1f}) vs {v['plain_ms']:.3f} ms"
-              + (f", {v['library_ms'] * 1e3:.1f} us" if v.get("library_ms") else "")
-              + f", {v['bound_ms'] * 1e3:.3f} us {v['bound_by']}"
-              for kern, by in rt_times.items() for k, v in by.items()), flush=True)
+    print_path_times(card, "runtime", rt_times)
     # ---- 7d. where a runtime tick's host time goes, by layer
     phase_runtime_stages(dev, card, report)
+    # ---- 7e. the kernels on the inputs the iq_ingress path handed them
+    iq_times = phase_runtime_kernels(dev, report, iq_catch, "iq_ingress")
+    report["kernel_ms"]["iq_ingress"] = iq_times
+    print_path_times(card, "iq_ingress", iq_times)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 8. profiles
@@ -1907,7 +2213,8 @@ def main() -> int:
          "bound_ms": bcjr_bound[0], "bound_by": bcjr_bound[1],
          "library_ms": None, "one_window": one_window,
          "loopback": path_entry(lb_times["bcjr"]),
-         "runtime": path_entry(rt_times["bcjr"])},
+         "runtime": path_entry(rt_times["bcjr"]),
+         "iq_ingress": path_entry(iq_times["bcjr"])},
         {"name": "bcjr_posterior_cm_bf16", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:188",
@@ -1918,7 +2225,7 @@ def main() -> int:
          "blocks_per_sm": report["bcjr_bf16_blocks_per_sm"],
          "shapes": {k: {kk: v[kk] for kk in ("ms", "bcjr_ms", "bound_ms")}
                     for k, v in bf16_shapes.items()},
-         "loopback": {}, "runtime": {}},
+         "loopback": {}, "runtime": {}, "iq_ingress": {}},
         {"name": "sync_detect_sm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",
          "replaces": "dectnrp_tpu/phy/ops/sync_detect.py:62",
@@ -1932,7 +2239,8 @@ def main() -> int:
                                              "bound_ms")}
                     for k, v in sync_times.items()},
          "loopback": path_entry(lb_times["sync"]),
-         "runtime": path_entry(rt_times["sync"])},
+         "runtime": path_entry(rt_times["sync"]),
+         "iq_ingress": path_entry(iq_times["sync"])},
         {"name": "polyphase_fir", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
          "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",
@@ -1944,7 +2252,8 @@ def main() -> int:
                                              "library_ms", "bound_ms")}
                     for k, v in poly.items()},
          "loopback": path_entry(lb_times["polyphase"]),
-         "runtime": path_entry(rt_times["polyphase"])}]}
+         "runtime": path_entry(rt_times["polyphase"]),
+         "iq_ingress": path_entry(iq_times["polyphase"])}]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

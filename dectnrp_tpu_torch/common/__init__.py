@@ -1,2 +1,3 @@
-"""Common infrastructure of the port (see dectnrp_tpu/common): so far the
-batched JSON record export (`json_export.py`, a copy)."""
+"""Common infrastructure of the port (see dectnrp_tpu/common): the batched
+JSON record export (`json_export.py`), the native host runtime's bindings
+(`native.py`) and the live-IQ TCP scope (`tcp_scope.py`)."""

@@ -7,9 +7,9 @@ runtime -> firmware like the reference's radio_t -> phy_t -> upper_t
 construction chain, on `device`. The reference's compile-time #define
 families are promoted to these runtime JSON fields.
 
-The real-IQ radios (hw types iq_socket and iq_file: radio/hw_iq.py over
-common/native.py) are not ported; a scenario naming one raises
-NotImplementedError.
+A radio is simulated (the virtual ether, driven in lock-step by a
+SimDriver) or real-IQ (hw types iq_socket and iq_file: radio/hw_iq.py over
+common/native.py), which paces itself: its scenario has no driver.
 """
 from __future__ import annotations
 
@@ -112,7 +112,7 @@ def load_scenario(path: str | Path) -> Scenario:
 
 @dataclass
 class RunningScenario:
-    driver: SimDriver
+    driver: SimDriver | None          # None: real-IQ radios pace themselves
     hws: list
     runtimes: list[NodeRuntime]
     firmwares: list
@@ -120,7 +120,8 @@ class RunningScenario:
 
     def tick(self) -> None:
         t0 = time.perf_counter()
-        self.driver.tick()
+        if self.driver is not None:
+            self.driver.tick()
         for rt in self.runtimes:
             rt.process()
         self.tick_ms.append((time.perf_counter() - t0) * 1e3)
@@ -138,7 +139,7 @@ class RunningScenario:
 def build_scenario(sc: Scenario,
                    device: torch.device | str = "cuda") -> RunningScenario:
     """radio_t -> phy_t -> upper_t construction (dectnrp.cpp:80-110), the
-    virtual ether and every node's PHY on `device`."""
+    virtual ether (simulated radios) and every node's PHY on `device`."""
     from .upper import FIRMWARES
 
     vcfg = VSpaceConfig(samp_rate=sc.radio.samp_rate,
@@ -148,26 +149,45 @@ def build_scenario(sc: Scenario,
                         channel_intra=sc.radio.channel_intra,
                         noise_var=sc.radio.noise_var,
                         sim_seed=sc.radio.sim_seed)
+    # radio backend selection per hw (reference radio.json picks the
+    # device class, "simulator" vs "usrp"; here: simulator / iq_file /
+    # iq_socket — the real-IQ radios carry their own native ingress/egress
+    # threads and need no lock-step driver)
     hw_types = {h.get("type", "simulator") for h in sc.radio.hws}
     if hw_types != {"simulator"}:
         _require(hw_types.isdisjoint({"simulator"}),
                  "cannot mix simulator and real-IQ radios in one scenario")
-        for t in hw_types:
-            _require(t in ("iq_socket", "iq_file"), f"unknown hw type {t!r}")
-        raise NotImplementedError(
-            f"build_scenario: the real-IQ radios ({', '.join(sorted(hw_types))}: "
-            "radio/hw_iq.py over common/native.py) are not ported yet")
-    hws, nodes = [], []
-    for hw_cfg in sc.radio.hws:
-        n_ant = hw_cfg.get("n_ant", 1)
-        hws.append(HwSimulator(n_ant))
-        pos = hw_cfg.get("position", [0.0, 0.0, 0.0])
-        nodes.append(VNodeConfig(
-            n_ant,
-            Trajectory(Position(*pos)),
-            tx_leakage_db=hw_cfg.get("tx_leakage_db", float("inf")),
-            noise_figure_db=hw_cfg.get("noise_figure_db", 0.0)))
-    driver = SimDriver(vcfg, hws, nodes, device)
+        hws = []
+        for hw_cfg in sc.radio.hws:
+            n_ant = hw_cfg.get("n_ant", 1)
+            rate = int(sc.radio.samp_rate)
+            if hw_cfg.get("type") == "iq_socket":
+                from .radio.hw_iq import HwIqSocket
+                hws.append(HwIqSocket(
+                    rx_port=hw_cfg["rx_port"], samp_rate=rate, n_ant=n_ant,
+                    tx_sink=hw_cfg.get("tx_sink"),
+                    spp=hw_cfg.get("spp", 2048)))
+            elif hw_cfg.get("type") == "iq_file":
+                from .radio.hw_iq import HwIqStream
+                hws.append(HwIqStream(
+                    hw_cfg["path"], samp_rate=rate, n_ant=n_ant,
+                    spp=hw_cfg.get("spp", 2048),
+                    realtime=hw_cfg.get("realtime", True)))
+            else:
+                _require(False, f"unknown hw type {hw_cfg.get('type')!r}")
+        driver = None
+    else:
+        hws, nodes = [], []
+        for hw_cfg in sc.radio.hws:
+            n_ant = hw_cfg.get("n_ant", 1)
+            hws.append(HwSimulator(n_ant))
+            pos = hw_cfg.get("position", [0.0, 0.0, 0.0])
+            nodes.append(VNodeConfig(
+                n_ant,
+                Trajectory(Position(*pos)),
+                tx_leakage_db=hw_cfg.get("tx_leakage_db", float("inf")),
+                noise_figure_db=hw_cfg.get("noise_figure_db", 0.0)))
+        driver = SimDriver(vcfg, hws, nodes, device)
 
     runtimes, firmwares = [], []
     for i, hw in enumerate(hws):

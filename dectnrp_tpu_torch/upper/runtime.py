@@ -4,9 +4,10 @@
 Counterpart of the reference PHY pool (lib/src/phy/pool/): worker_sync_t's
 chunked ring search, the job queue, token-serialized tpoint calls and
 worker_tx_rx_t's pcc->work_pcc->pdc->work_pdc dispatch collapse into one
-single-threaded `NodeRuntime.process()` driven after each SimDriver tick;
-the PHY work (sync, demod, FEC, TX synthesis, resampling) runs in the
-port's modules on `device`.
+single-threaded `NodeRuntime.process()` driven after each SimDriver tick
+(or, over a real-IQ radio, as its samples arrive); the PHY work (sync,
+demod, FEC, TX synthesis, resampling) runs in the port's modules on
+`device`.
 
 Blind packet-dimension handling: the PCC sits in the first symbols at cells
 that depend only on (u, b, N_TS), so the PCC stage runs the aligned rx of a
@@ -21,8 +22,10 @@ to the device once; each PHY call's report comes back in one transfer
 (`_host`). The PHY modules are built once per (arguments, device)
 (`_module`): the builders themselves are not cached.
 
-The application layer (`app_server` / `app_client`) is not ported and
-raises NotImplementedError.
+Application layer: an `app_server` (application/socket_app.SocketServer or
+anything with `read_all()`) is drained into `work_application` each
+process(), and what the firmware received (`tpoint.app_rx`) goes out
+through an `app_client` (reference application_report_t jobs).
 """
 from __future__ import annotations
 
@@ -127,8 +130,8 @@ class _DectLower:
 
 
 class NodeRuntime:
-    """Per-node MAC/PHY event loop over a HwSimulator's RX ring, its PHY on
-    `device`.
+    """Per-node MAC/PHY event loop over a radio's RX ring (HwSimulator,
+    HwIqStream, HwIqSocket), its PHY on `device`.
 
     hw_samp_rate: actual radio rate. When it differs from the DECT rate
     (1.728 MHz * u * b), a streaming polyphase front end converts the hw-rate
@@ -148,9 +151,6 @@ class NodeRuntime:
                  hw_samp_rate: int | None = None,
                  json_export_dir: str | None = None,
                  device: torch.device | str = "cuda"):
-        if app_server is not None or app_client is not None:
-            raise NotImplementedError("NodeRuntime: the application layer "
-                                      "(app_server / app_client) is not ported yet")
         self.hw = hw
         self.tpoint = tpoint
         self.network_id = network_id
@@ -176,6 +176,10 @@ class NodeRuntime:
         self._sync = _module("sync", (u, b, chunk_len + self.overlap),
                              self._dev, max_peaks=self.max_peaks)
         self._stf_len = get_N_samples_STF(u, b)
+        # application layer (reference posts application_report_t jobs into
+        # the PHY job queue, README.md:248; here: drained per process())
+        self.app_server = app_server
+        self.app_client = app_client
         # per-received-packet JSON records (reference worker_tx_rx.cpp:
         # 355-415 json_export of sync report/channel/PLCF per packet,
         # README.md:333-337 — feeds the offline analysis tooling)
@@ -265,7 +269,12 @@ class NodeRuntime:
             self._hw_consumed = self._hw_origin
             self._hist = torch.zeros((self.hw.n_ant, self._rx_H),
                                      dtype=torch.complex64, device=self.device)
-        while self._hw_consumed + self._chunk_pump <= self.hw.rx_time_passed:
+        # one call resamples what had arrived when it began: a real-IQ radio
+        # that outruns the runtime must not keep the call from returning
+        # (lock-step radios do not move during a call; a free-running
+        # stream is consumed in the same steps over more calls)
+        end = self.hw.rx_time_passed
+        while self._hw_consumed + self._chunk_pump <= end:
             try:
                 x = self.hw.get_rx_stream(self._hw_consumed, self._chunk_pump)
             except ValueError:
@@ -323,9 +332,8 @@ class NodeRuntime:
 
     def work_application(self, datagrams: list[bytes]) -> None:
         """An application-report job: hand datagrams to the firmware and
-        transmit what it returns (what process() does with an app server's
-        datagrams in the JAX package, whose application layer the port does
-        not carry yet)."""
+        transmit what it returns (process() does so with an app server's
+        datagrams; the scenario runner's --datagrams calls it directly)."""
         if datagrams:
             self._transmit(self.tpoint.work_application(datagrams))
 
@@ -490,6 +498,17 @@ class NodeRuntime:
             self._processed = now_d
             self._last_regular = now_d
 
+        # application ingress/egress (application_report_t jobs)
+        if self.app_server is not None:
+            if hasattr(self.app_server, "poll"):
+                self.app_server.poll()
+            self.work_application(self.app_server.read_all())
+        if self.app_client is not None:
+            out = getattr(self.tpoint, "app_rx", None)
+            if out:
+                self.app_client.write_all(out)
+                out.clear()
+
         # retry stages waiting for more samples: PDC first (older packets,
         # FIFO job order), then detections awaiting their PCC window
         window_start = self._dbuf_time if not self.plan_tx.identity \
@@ -511,8 +530,8 @@ class NodeRuntime:
                 still.append(args)
         self._pending = still
 
-        while self._processed + self.chunk_len + self.overlap \
-                <= self._dect_time_passed:
+        avail = self._dect_time_passed      # as for _pump: what has arrived
+        while self._processed + self.chunk_len + self.overlap <= avail:
             if self._processed < window_start:
                 # overrun skip moved the window past the sync cursor
                 self._processed = window_start

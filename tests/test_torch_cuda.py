@@ -461,3 +461,35 @@ def test_runtime_exchange_card_matches_cpu(dev, kind):
             assert n[1] > 0 and n[3] == 0
             assert (n[2] > 0) == (kind == "sdr"), n
     assert rc.differences(runs[str(dev)], runs["cpu"]) == []
+
+
+def test_iq_file_card_matches_cpu(dev, tmp_path):
+    """The real-IQ file ingress (iq_check: three packets at 25 dB, 1.92
+    Ms/s, read free-running by HwIqStream into NodeRuntime) on the card and
+    on the CPU: 3 of 3 TBs, no overrun, equal RuntimeStats, detection times
+    and TBs; B2 once a chunk, B3 once a front-end step, B1 one window."""
+    from dectnrp_tpu_torch import iq_check as iq
+    from dectnrp_tpu_torch.common.native import native_available
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
+    from dectnrp_tpu_torch.radio.hw_iq import write_iq_file
+
+    assert native_available()
+    stream, payloads = iq.ingress_stream(device=dev)
+    path = tmp_path / "ingress.cf32"
+    write_iq_file(path, stream, spp=iq.SPP)
+    c0 = (sync_detect.launches, polyphase.launches, bcjr_cuda.launches,
+          bcjr_cuda.launches_one_window)
+    hw, rt, fw = iq.run_file(path, payloads, dev)
+    n = [a - b for a, b in zip((sync_detect.launches, polyphase.launches,
+                                bcjr_cuda.launches,
+                                bcjr_cuda.launches_one_window), c0)]
+    _, rt_c, fw_c = iq.run_file(path, payloads, "cpu")
+    assert fw.tb_match == 3 and hw.read_overruns == 0, rt.stats
+    assert vars(rt.stats) == vars(rt_c.stats)
+    assert fw.detection_times == fw_c.detection_times
+    for a, b in zip(fw.tbs, fw_c.tbs, strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert n[0] == rt.stats.chunks
+    assert n[1] == (rt._hw_consumed - rt._hw_origin) // rt._chunk_pump
+    assert n[2] == n[3] > 0, n

@@ -276,10 +276,86 @@ def test_json_export_wiring(tmp_path):
 
 
 def test_application_layer_not_ported():
-    hw = HwSimulator(1)
-    with pytest.raises(NotImplementedError, match="application layer"):
-        NodeRuntime(hw, Tpoint(), IDENT.network_id, app_server=object(),
-                    device="cpu")
+    """The application layer is ported (the name is kept from when it was
+    not): a datagram sent to node 0's app_server (a SocketServer) goes over
+    the air as its TfwRtt's data packet, node 1 echoes it, and node 0's
+    app_client sends it on to a UDP listener, as the JAX runtime does."""
+    import time
+
+    from dectnrp_tpu_torch.application.socket_app import SocketClient, SocketServer
+    from dectnrp_tpu_torch.upper.misc import TfwRtt
+
+    hws, drv = _two_nodes(spp=2048)
+    srv, out_srv = SocketServer([0]), SocketServer([0])
+    try:
+        fw0 = TfwRtt(IDENT.network_id, 0x2222)
+        fw1 = TfwRtt(IDENT.network_id, 0x3333, echo=True)
+        cli = SocketClient(out_srv.bound_ports)
+        rt0 = NodeRuntime(hws[0], fw0, IDENT.network_id, app_server=srv,
+                          app_client=cli, device="cpu")
+        rt1 = NodeRuntime(hws[1], fw1, IDENT.network_id, device="cpu")
+        probe = b"\x00\x00\x00\x07" + bytes(20)
+        sender = SocketClient(srv.bound_ports)
+        sender.write(probe)
+        sender.close()
+        got, deadline = [], time.time() + 60.0
+        for _ in range(60):
+            drv.tick()
+            rt0.process()
+            rt1.process()
+            out_srv.poll(timeout=0.0)
+            got += out_srv.read_all()
+            if got or time.time() > deadline:
+                break
+        cli.close()
+    finally:
+        srv.stop()
+        out_srv.stop()
+    assert got == [probe], (fw0.stats, fw1.stats, rt0.stats, rt1.stats)
+    assert fw0.stats == fw1.stats == {"tx": 1, "rx": 1}
+    assert fw0.app_rx == []                  # handed on to the app client
+
+
+class _OutrunningRadio:
+    """A radio whose write head moves on by twice what each read takes: a
+    paced radio faster than the runtime, without a clock."""
+    n_ant, rx_ring_len = 1, 1 << 20
+
+    def __init__(self, samp_rate, head):
+        self.samp_rate, self.head, self.reads = samp_rate, head, 0
+
+    @property
+    def rx_time(self):
+        return max(0, self.head - self.rx_ring_len)
+
+    @property
+    def rx_time_passed(self):
+        return self.head
+
+    def get_rx_stream(self, t0, n):
+        self.reads += 1
+        assert self.reads < 500, "process() is chasing the radio's head"
+        self.head += 2 * n
+        return np.zeros((1, n), np.complex64)
+
+
+@pytest.mark.parametrize("rate", [1_728_000, 1_920_000], ids=["dect", "sdr"])
+def test_process_returns_over_a_radio_that_outruns_it(rate):
+    """One process() call resamples and syncs what had arrived when it
+    began, so a real-IQ radio faster than the runtime cannot keep the call
+    from returning; the next call takes up what arrived meanwhile."""
+    hw = _OutrunningRadio(rate, 4 * 5120)
+    rt = NodeRuntime(hw, Tpoint(), IDENT.network_id, hw_samp_rate=rate,
+                     device="cpu")
+    for _ in range(2):
+        head = hw.head
+        rt.process()
+        if rate == 1_728_000:           # the DECT rate: chunks off the ring
+            assert rt._processed + rt.overlap <= head \
+                < rt._processed + rt.chunk_len + rt.overlap
+        else:                           # 9/10 front end, 5,120-sample steps
+            assert rt._hw_consumed == head
+    assert rt.stats.chunks > 0
 
 
 # --------------------------------------------------------------- parity

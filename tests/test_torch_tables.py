@@ -44,7 +44,12 @@ COPIES = sorted(f"sections/part3/{p.name}" for p in
     "radio/antenna_array.py", "simulation/topology.py", "phy/agc.py",
     "upper/tpoint.py", "upper/p2p.py", "upper/misc.py",
     "mac/allocation.py", "mac/contact_list.py", "mac/cqi.py", "mac/pll.py",
-    "mac/ppx.py"]
+    "mac/ppx.py",
+    # the real-IQ radios and the application layer (native.py is a port:
+    # its build goes to the package's _build/, tests/test_torch_native_rt.py)
+    "application/__init__.py", "application/queue.py",
+    "application/socket_app.py", "application/vnic.py", "apps/rtt.py",
+    "apps/sync_gen.py", "common/tcp_scope.py", "radio/hw_iq.py"]
 # the resampler's ratios: get_resampler_fraction's set and the inverses
 RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),
           (9, 10), (27, 40), (9, 20), (27, 80), (1, 2)]
