@@ -1184,8 +1184,7 @@ RT_SCENARIOS = (("basic_simulator", 40, 0), ("rtt_simulator", 40, 3),
 
 def rt_pumps(runtimes):
     """Resampler front-end steps the runtimes ran (0 at the DECT rate)."""
-    return sum((rt._hw_consumed - (rt._hw_origin or 0)) // rt._chunk_pump
-               for rt in runtimes if not rt.plan_tx.identity)
+    return sum(rt.front_end_steps for rt in runtimes)
 
 
 def rt_tick_stats(tick_ms, spp, rate, n_nodes):
@@ -1672,6 +1671,9 @@ def phase_iq(dev, card, report):
             (cfg / "radio.json").write_text(json.dumps(radio))
             return dectnrp_main.run([str(cfg), "--ticks", str(SOCKET_TICKS),
                                      "--device", str(dev)])
+        # a bind that loses its port to another process (PortInUse, raised
+        # while the scenario is built, before its first tick) is the only
+        # error retried: any other fails the phase at once
         run, recs = iq.on_free_port(run_socket_radio)
         try:
             torch.cuda.synchronize()

@@ -374,6 +374,10 @@ class NativeIqProducer(_NativeThread):
         return bool(self._count("iqp_eof"))
 
 
+class PortInUse(RuntimeError):
+    """The UDP IQ ingress could not bind its port."""
+
+
 class NativeIqSocketProducer(_NativeThread):
     """UDP-fed IQ ingress thread writing datagram samples into the ring.
 
@@ -395,7 +399,7 @@ class NativeIqSocketProducer(_NativeThread):
         self._ring = ring
         self._h = lib.iqp_create_socket(ring._h, port, max_samples_per_dgram)
         if not self._h:
-            raise RuntimeError(f"iqp_create_socket failed on port {port}")
+            raise PortInUse(f"iqp_create_socket failed on port {port}")
         ring._users.append(self)
 
     @property

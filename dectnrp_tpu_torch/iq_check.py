@@ -45,11 +45,14 @@ def free_udp_port() -> int:
 
 def on_free_port(make, tries: int = 8):
     """make(port) on a free UDP port; another process may take the port
-    between its release and the native bind (RuntimeError): retry."""
+    between its release and the native bind (PortInUse): retry that, and
+    only that."""
+    from .common.native import PortInUse
+
     for i in range(tries):
         try:
             return make(free_udp_port())
-        except RuntimeError:
+        except PortInUse:
             if i == tries - 1:
                 raise
 
@@ -101,15 +104,12 @@ def ingress_stream(device: torch.device | str = "cuda"):
 
 def drain(rt: NodeRuntime, hw, timeout_s: float = 120.0) -> None:
     """process() until a free-running stream is read, resampled and
-    decoded (a process() call resamples only what had arrived when it
-    began: the producer's EOF alone does not say all was resampled)."""
+    decoded (NodeRuntime.caught_up)."""
     deadline = time.time() + timeout_s
     while time.time() < deadline:
         eof = hw.eof
         rt.process()
-        if eof and rt._hw_consumed + rt._chunk_pump > hw.rx_time_passed \
-                and rt._dect_time_passed - rt._processed < 4096 \
-                and not rt._pending and not rt._pending_pdc:
+        if rt.caught_up(eof):
             return
         time.sleep(0.002)
     raise RuntimeError(f"stream not drained in {timeout_s} s ({rt.stats})")

@@ -297,6 +297,29 @@ class NodeRuntime:
             self._hw_consumed += self._chunk_pump
             self._append_dect(y.cpu().numpy())
 
+    @property
+    def front_end_steps(self) -> int:
+        """Resampler front-end steps taken so far, overrun skips included
+        (0 at the DECT rate)."""
+        if self.plan_tx.identity or self._hw_origin is None:
+            return 0
+        return (self._hw_consumed - self._hw_origin) // self._chunk_pump
+
+    def caught_up(self, hw_eof: bool) -> bool:
+        """Whether a stream that had ended when the last process() began
+        (`hw_eof`, read before that call) is all consumed: every whole
+        front-end step resampled, every whole chunk synced, no detection
+        awaiting its decode. One process() takes only what had arrived when
+        it began, so the producer's EOF alone does not say so."""
+        if not hw_eof:
+            return False
+        if not self.plan_tx.identity and \
+                self._hw_consumed + self._chunk_pump <= self.hw.rx_time_passed:
+            return False
+        return (self._processed + self.chunk_len + self.overlap
+                > self._dect_time_passed
+                and not self._pending and not self._pending_pdc)
+
     # ------------------------------------------------------------------ TX
     def _transmit(self, machigh: MacHighPhy) -> None:
         from ..sections.part4.plcf import bytes_to_bits

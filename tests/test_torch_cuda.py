@@ -491,5 +491,5 @@ def test_iq_file_card_matches_cpu(dev, tmp_path):
     for a, b in zip(fw.tbs, fw_c.tbs, strict=True):
         np.testing.assert_array_equal(a, b)
     assert n[0] == rt.stats.chunks
-    assert n[1] == (rt._hw_consumed - rt._hw_origin) // rt._chunk_pump
+    assert n[1] == rt.front_end_steps
     assert n[2] == n[3] > 0, n

@@ -82,6 +82,21 @@ def test_iq_file_ingress_decodes(tmp_path):
     assert hw.read_overruns == 0
 
 
+def drain_jax(rt, hw, timeout_s: float = 120.0) -> None:
+    """The JAX runtime over a free-running stream until it is read and
+    decoded (tests/test_iq_ingress.py's loop: one JAX process() call
+    consumes all that arrives while it runs)."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        eof = hw.eof
+        rt.process()
+        if eof and rt._dect_time_passed - rt._processed < 4096 \
+                and not rt._pending and not rt._pending_pdc:
+            return
+        time.sleep(0.002)
+    raise RuntimeError(f"stream not drained in {timeout_s} s ({rt.stats})")
+
+
 def test_iq_file_ingress_decides_as_jax(tmp_path):
     """The JAX package's HwIqStream + NodeRuntime and the port's on the
     same recorded file: equal RuntimeStats, detection times and TBs."""
@@ -91,14 +106,14 @@ def test_iq_file_ingress_decides_as_jax(tmp_path):
 
     path, payloads, _ = record_file(tmp_path)
     runs = []
-    for hw_cls, rt_cls, fw_cls, kw in (
-            (JHw, JRt, jax_counter, {}),
-            (HwIqStream, NodeRuntime, RxCounter, {"device": "cpu"})):
+    for hw_cls, rt_cls, fw_cls, kw, run in (
+            (JHw, JRt, jax_counter, {}, drain_jax),
+            (HwIqStream, NodeRuntime, RxCounter, {"device": "cpu"}, drain)):
         hw = hw_cls(path, samp_rate=RATE, spp=2048, realtime=False)
         fw = fw_cls(payloads)
         rt = rt_cls(hw, fw, IDENT.network_id, hw_samp_rate=RATE, **kw)
         try:
-            drain(rt, hw)
+            run(rt, hw)
         finally:
             hw.close()
         assert hw.read_overruns == 0
@@ -156,13 +171,15 @@ def test_ring_overrun_recovery(tmp_path):
         time.sleep(0.1)
         deadline = time.time() + 60.0
         while time.time() < deadline:
+            eof = hw.eof
             rt.process()                    # must never raise on overrun
-            if hw.eof and rt._hw_consumed + rt._chunk_pump > hw.rx_time_passed:
+            if rt.caught_up(eof):
                 break
             time.sleep(0.002)
         assert hw.eof
         assert hw.read_overruns > 0, "test did not exercise the overrun path"
-        assert rt._hw_consumed + rt._chunk_pump > n - 2048, (rt._hw_consumed, n)
+        assert rt.caught_up(True), rt.stats
+        assert hw.rx_time_passed == n, hw.rx_time_passed
         assert rt.stats.chunks > 0
     finally:
         hw.close()

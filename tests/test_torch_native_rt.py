@@ -273,3 +273,43 @@ def test_closed_handles_are_safe(tmp_path):
     assert txc.late_bursts == 0 and txc.send_errors == 0
     with pytest.raises(RuntimeError, match="closed"):
         txc.schedule(0, 0, np.zeros((1, 8), np.complex64))
+
+
+def test_port_in_use_is_the_only_retried_error():
+    """A UDP ingress on a port another socket holds raises PortInUse;
+    on_free_port retries that on a new port and nothing else: any other
+    error leaves on its first occurrence."""
+    import socket
+
+    from dectnrp_tpu_torch.common.native import NativeIqSocketProducer, PortInUse
+    from dectnrp_tpu_torch.iq_check import on_free_port
+
+    held = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    held.bind(("127.0.0.1", 0))
+    ring = NativeRingBuffer(1 << 12, 1)
+    try:
+        with pytest.raises(PortInUse):
+            NativeIqSocketProducer(ring, held.getsockname()[1])
+        ports = []
+
+        def busy_once(port):
+            ports.append(port)
+            if len(ports) == 1:
+                return NativeIqSocketProducer(ring, held.getsockname()[1])
+            return NativeIqSocketProducer(ring, port)
+
+        prod = on_free_port(busy_once)
+        assert len(ports) == 2 and prod.datagrams == 0
+        prod.close()
+        tries = []
+
+        def fails(port):
+            tries.append(port)
+            raise RuntimeError("a failure that is not the bind")
+
+        with pytest.raises(RuntimeError, match="not the bind"):
+            on_free_port(fails)
+        assert len(tries) == 1
+    finally:
+        ring.close()
+        held.close()
