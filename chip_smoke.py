@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Six main paths, each driven once through its entry points with every
-kernel's launch count set to 0 just before it and read just after:
+Seven main paths, each driven once through its entry points with every
+kernel's launch count set to 0 just before it (and before each part of
+phy_options) and read just after:
   flagship  make_flagship_step: u=1 b=16 SISO MCS4, B = 64 streams of
             T = 192,512 samples, 2 packets each, 15 dB, no resampler;
   wall      make_wall_step: u=1 b=8, N_TX = 4 Alamouti transmit diversity,
@@ -43,7 +44,15 @@ kernel's launch count set to 0 just before it and read just after:
             2048, a 1 Mi-sample ring, u = 1, b = 1, 1 antenna (4 on the
             UDP egress): a cf32 file read free-running, socket_radio
             through apps.dectnrp_main.run, the paced UDP egress looped into
-            the ingress, and apps.rtt through the application layer.
+            the ingress, and apps.rtt through the application layer;
+  phy_options  the builder options the port took last
+            (dectnrp_tpu_torch/options_check.py) at the flagship's width,
+            (1, 16, 1, 4, 0, 4, 6144) and B = 64 packets, not cut in width:
+            TX windowing, beamforming over every codebook entry of tm 3,
+            beta / integer-CFO estimation and the RMS gate on [64, 1,
+            192,512] streams, every chestim option through build_rx_stream
+            (16 fading packets, 2 of them also on the CPU: cut in depth),
+            the MMIE round trip.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
@@ -76,7 +85,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the sync reports' t_fine, detected and n_eff_tx equal (with max_peaks
      4, t_fine and n_eff_tx where a peak is detected); and vs its tiled twin
      (the kernel's own decomposition) at rtol 1e-5 / atol 1e-6, the
-     measured max |err| reported;
+     measured max |err| reported, and bit for bit at the flagship, wall,
+     u8b16 and runtime shapes (the RMS gate skipped at rms_min = 0);
   5. polyphase kernel vs its plain twin at the wall step's shapes (10/9 on
      [16, 4, 23,040], 9/10 on [16, 4, 85,900]), at 40/27 and at a ragged
      9/10 length, rtol 2e-5 / atol 2e-5; a 3-chunk streaming chain equal to
@@ -134,6 +144,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      they depend on the runtime's speed), and on 4 antennas the bursts
      back bit for bit; (d) apps.rtt -> SocketServer -> TfwRtt over the
      ether on the card -> echo -> SocketClient: >= 1 of 2 back;
+  6f. the phy_options path (phase_options): (a) window fractions 0.25
+     and 0.5, aligned RX at 30 dB: 64/64 TBs, in-band power within 2 % of
+     the unwindowed TX, the skirt > 1 dB lower and lower again at 0.5; (b)
+     tm 3 with codebook entries 0-5 through one numpy flat 2 x 1 channel
+     (|h|^2 = 2) at 20 dB: 64/64 on the entries above the median gain, and
+     phy/mimo.py's search on tm 1 soundings of the channel picking entries
+     at or above it; (c) est_beta_icfo: the flagship's packets beta 16 /
+     cfo_int 0, b = 4 packets upsampled x4 (prepared before the count)
+     with integer CFO 0, +2, -1: beta 4, the shifts from their true STF
+     start; rms_min between the noise's and the packets' RMS detects as
+     the ungated sync, above the packets' RMS nothing; B2 exactly 4
+     launches; (d) lr_f, freq_kind linear, time_kind wiener, dd_passes 2,
+     est_sto off, est_cfo off through build_rx_stream: decode_ok >= 0.95 at
+     20 dB (B2 once a sync), tb_ok over the loopback's doubly-selective
+     channel recorded, and on 2 fading streams the card deciding as the
+     CPU; (e) loopback_mmie_roundtrip: the three MMIEs back. B1 in (a),
+     (b), (d), (e); B3 and B4 never;
   7. times with CUDA events / synchronized host clocks: each step's median
      over 5 steps, its realtime multiple B*T / step time / radio rate,
      per-stage times, and each kernel next to its plain twin, its bound on
@@ -178,6 +205,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      B1 one window at the PCC's and the PDCs' K on 1 row, B2 on a sync
      chunk [1, 1, 2,496], B3 on the 9/10 front-end step and the 10/9 TX
      burst;
+  7f. the kernels on the inputs the phy_options path handed them: B1 at
+     every (K, rows) caught (one window at the PCC's and the MMIE packet's
+     K, windowed at the flagship's PDC), bit for bit its plain twin; B2 on
+     the [64, 1, 192,512] streams of (c) with the RMS gate off and on, held
+     to its plain twin off gate ties and to its tiled twin, each timed by
+     graph replay in turns (off, on, on, off) beside its plain twin and
+     bound;
   8. torch.profiler (device activity only) over one flagship and one wall
      step, one loopback point of `sync` and of `mimo_fading` (MCS 2 at
      the committed threshold, 500 packets) and one runtime exchange at each
@@ -568,31 +602,36 @@ def stf_stream(u, b, B, T, n_stf, gen, dev, snr_db=SNR_DB):
 
 
 def _sync_check(s, y, label, report):
-    """Kernel sm vs plain and tiled sm on the card; kernel report vs CPU
-    report."""
+    """Kernel sm vs plain and tiled sm on the card (the Sync module's RMS
+    gate included); kernel report vs CPU report."""
     from dectnrp_tpu_torch.phy.ops.sync_detect import (default_span,
                                                        detect_metric_plain,
-                                                       detect_sm,
+                                                       detect_rms, detect_sm,
                                                        detect_sm_plain,
                                                        detect_sm_tiled,
                                                        gate_tie_mask)
 
     pr = s.params
     args = (s.P, s.w, s.sl, s.sr, pr.metric_threshold, pr.metric_max)
-    got = detect_sm(y, *args)
-    want = detect_sm_plain(y, *args)
-    tiled = detect_sm_tiled(y, *args, default_span(y, s.P, s.n_pat, s.sl, s.sr))
-    metric, _, _ = detect_metric_plain(y, s.P, s.w)
-    ok = gate_tie_mask(metric, pr.metric_threshold, pr.metric_max, s.sl, s.sr,
-                       1e-3)
+    gate = {"rms_min": pr.rms_min, "rms_max": pr.rms_max}
+    got = detect_sm(y, *args, **gate)
+    want = detect_sm_plain(y, *args, **gate)
+    tiled = detect_sm_tiled(y, *args, default_span(y, s.P, s.n_pat, s.sl, s.sr),
+                            **gate)
+    metric, _, P2s = detect_metric_plain(y, s.P, s.w)
+    rms = detect_rms(P2s, s.L * y.shape[1])
+
+    def ok_at(eps):
+        return gate_tie_mask(metric, pr.metric_threshold, pr.metric_max, s.sl,
+                             s.sr, eps, rms, pr.rms_min, pr.rms_max)
+    ok = ok_at(1e-3)
     require(torch.isfinite(got).all(), f"sync {label}: non-finite sm")
     masked = 1.0 - ok.float().mean().item()
     require(masked < 0.05, f"sync {label}: {masked:.3f} of sm near gate ties")
     err = (got - want).abs()[ok].max().item()
     require(torch.allclose(got[ok], want[ok], rtol=2e-3, atol=2e-4),
             f"sync {label}: kernel vs plain max |err| {err}")
-    ok_t = gate_tie_mask(metric, pr.metric_threshold, pr.metric_max, s.sl, s.sr,
-                         1e-5)
+    ok_t = ok_at(1e-5)
     err_t = (got - tiled).abs()[ok_t].max().item()
     n_eq = int((got == tiled).sum())
     require(torch.allclose(got[ok_t], tiled[ok_t], rtol=1e-5, atol=1e-6),
@@ -1390,8 +1429,6 @@ def phase_runtime_kernels(dev, report, catch, path="runtime"):
     (history + 5,120 radio samples), bit for bit its tiled twin and within
     POLY_TOL of its plain twin, conv1d beside it."""
     from dectnrp_tpu_torch.kernels import graph_us
-    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
-    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior
     from dectnrp_tpu_torch.phy.ops import sync_detect
     from dectnrp_tpu_torch.phy.ops.polyphase import polyphase_fir, polyphase_fir_plain
 
@@ -1400,38 +1437,7 @@ def phase_runtime_kernels(dev, report, catch, path="runtime"):
             and {(10, 9), (9, 10)} <= {k[:2] for k in catch.poly},
             f"{path}: inputs not caught (bcjr {sorted(catch.bcjr)}, sync "
             f"{sorted(catch.sync)}, polyphase {sorted(catch.poly)})")
-    for (K, rows), (route, Lsys, Lp) in sorted(catch.bcjr.items()):
-        windowed = K >= 512
-        lw = (128, 32) if windowed else (K + 3, 0)
-        require(route.func is bcjr_cuda.bcjr_posterior_cm
-                and route.keywords == {"K": K, "Lw": lw[0], "D": lw[1]},
-                f"{path} BCJR K={K}: the decoder does not take the kernel")
-        got = route(Lsys, Lp)
-        twin = bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, *lw)
-        if windowed:
-            def plain():
-                return bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, *lw)
-            unw = twin
-        else:
-            Ls_r, Lp_r = Lsys.T.contiguous(), Lp.T.contiguous()
-            La = torch.zeros((rows, K), device=dev)
-
-            def plain():
-                return _bcjr_posterior(Ls_r, Lp_r, La, K)
-            unw = plain().T
-        torch.cuda.synchronize()
-        label = f"K{K}_{rows}{'cb' if windowed else 'rows_one_window'}"
-        err = (got - twin).abs().max().item()
-        require(torch.isfinite(got).all() and torch.equal(got, twin)
-                and torch.equal(got, unw), f"{path} BCJR {label}: kernel vs "
-                f"plain twin max |err| {err}, vs turbo._bcjr_posterior "
-                f"{(got - unw).abs().max().item()} (must be 0)")
-        b_ms, b_by = bound(*bcjr_work(K, rows, windowed))
-        out["bcjr"][label] = {
-            "max_abs_err": err, "ms": 1e-3 * graph_us(lambda: route(Lsys, Lp)),
-            "eager_ms": cuda_ms(lambda: route(Lsys, Lp)),
-            "plain_ms": cuda_ms(plain, reps=3, warm=1),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    out["bcjr"] = bcjr_caught(catch, path, dev)
     for shape, (s, ys) in sorted(catch.sync.items()):
         label = f"{list(shape)}_b{s.P // 16}".replace(" ", "")
         err, err_t = _sync_check(s, ys, f"{path}_{label}", report)
@@ -1462,6 +1468,51 @@ def phase_runtime_kernels(dev, report, catch, path="runtime"):
             "max_abs_err": err, "max_abs_err_tiled": err_t,
             **poly_times(x, G, L_, M_, m0, n_out), "bound_ms": b_ms,
             "bound_by": b_by}
+    return out
+
+
+def bcjr_caught(catch, path, dev):
+    """B1 on each (K, rows) a path handed it (caught by RuntimeCatch): the
+    decoder's route must be the kernel (windowed from K = 512, else one
+    window), bit for bit its plain twin (and, as one window,
+    turbo._bcjr_posterior), then timed beside them and its bound."""
+    from dectnrp_tpu_torch.kernels import graph_us
+    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
+    from dectnrp_tpu_torch.phy.fec.turbo import _bcjr_posterior
+
+    out = {}
+    for (K, rows), (route, Lsys, Lp) in sorted(catch.bcjr.items()):
+        windowed = K >= 512
+        lw = (128, 32) if windowed else (K + 3, 0)
+        require(route.func is bcjr_cuda.bcjr_posterior_cm
+                and route.keywords == {"K": K, "Lw": lw[0], "D": lw[1]},
+                f"{path} BCJR K={K}: the decoder does not take the kernel")
+        got = route(Lsys, Lp)
+        twin = bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, *lw)
+        if windowed:
+            def plain():
+                return bcjr_cuda.bcjr_windowed_cm_plain(Lsys, Lp, K, *lw)
+            unw = twin
+        else:
+            Ls_r, Lp_r = Lsys.T.contiguous(), Lp.T.contiguous()
+            La = torch.zeros((rows, K), device=dev)
+
+            def plain():
+                return _bcjr_posterior(Ls_r, Lp_r, La, K)
+            unw = plain().T
+        torch.cuda.synchronize()
+        label = f"K{K}_{rows}{'cb' if windowed else 'rows_one_window'}"
+        err = (got - twin).abs().max().item()
+        require(torch.isfinite(got).all() and torch.equal(got, twin)
+                and torch.equal(got, unw), f"{path} BCJR {label}: kernel vs "
+                f"plain twin max |err| {err}, vs turbo._bcjr_posterior "
+                f"{(got - unw).abs().max().item()} (must be 0)")
+        b_ms, b_by = bound(*bcjr_work(K, rows, windowed))
+        out[label] = {
+            "max_abs_err": err, "ms": 1e-3 * graph_us(lambda: route(Lsys, Lp)),
+            "eager_ms": cuda_ms(lambda: route(Lsys, Lp)),
+            "plain_ms": cuda_ms(plain, reps=3, warm=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     return out
 
 
@@ -1813,6 +1864,116 @@ def phase_iq(dev, card, report):
     return launches, catch
 
 
+OPT_B, OPT_B_FADE, OPT_N_CPU = 64, 16, 2
+
+
+def phase_options(dev, card, report):
+    """The phy_options path (dectnrp_tpu_torch/options_check.py) at the
+    flagship's width, (1, 16, 1, 4, 0, 4, 6144) and B = 64 packets: (a) TX
+    windowing, (b) beamforming over every codebook entry of tm 3 (and the
+    codebook search on tm 1 soundings), (c) beta / integer CFO and the RMS
+    gate on [64, 1, 192,512] streams, (d) every chestim option through
+    build_rx_stream (AWGN gated, 16 fading packets recorded, 2 of them on
+    the CPU too), (e) the MMIE round trip; each part gated, every kernel's
+    count set to 0 before it and read after it. B1 in (a), (b), (d) and
+    (e); B2 exactly once a sync: 4 in (c), 2 in (d), none elsewhere; B3
+    and B4 never (the x4 upsampled stream of (c) is made before its count
+    starts). Returns (launches on the path, the B1 inputs caught, the
+    ungated and gated Sync modules with the streams they took)."""
+    from dectnrp_tpu_torch import options_check as oc
+
+    from dectnrp_tpu_torch.loopback import FLAGSHIP_PSDEF as F
+
+    T = 192512
+    res, launches = {}, Counter()
+    catch = RuntimeCatch()
+    t_path = time.perf_counter()
+
+    def part(name, fn, want):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        d = counts()
+        secs = time.perf_counter() - t0
+        require(all((d[k] > 0) if v == ">0" else d[k] == v
+                    for k, v in want.items()),
+                f"phy_options ({name}): kernels not launched as expected "
+                f"({d}; want {want})")
+        launches.update(d)
+        res[name] = {"result": out, "launches": d, "seconds": secs}
+        print(f"[{card}] phy_options ({name}) passed its gates in {secs:.2f} s: "
+              f"{json.dumps(out if name != 'sync' else out['summary'])[:900]}; "
+              "launches " + " ".join(f"{k} {v}" for k, v in d.items()), flush=True)
+        return out
+
+    none = {"sync": 0, "polyphase": 0, "bcjr_bf16": 0}
+    try:
+        part("windowing", lambda: oc.windowing(F, OPT_B, dev),
+             {"bcjr": ">0", "bcjr_one_window": ">0", **none})
+        part("beamforming", lambda: oc.beamforming(oc.with_tm(F, 3), 1, OPT_B, dev),
+             {"bcjr": ">0", "bcjr_one_window": ">0", **none})
+        inp = oc.sync_inputs(F, OPT_B, T, dev)
+        syn = part("sync", lambda: oc.sync(inp, dev),
+                   {"bcjr": 0, **none, "sync": 4})
+        part("chestim", lambda: oc.chestim(F, OPT_B, OPT_B_FADE, T, dev,
+                                           n_cpu=OPT_N_CPU),
+             {"bcjr": ">0", **none, "sync": 2})
+        part("mmie", lambda: oc.mmie(dev),
+             {"bcjr": ">0", "bcjr_one_window": ">0", **none})
+    finally:
+        catch.close()
+    for name in res:
+        if name == "sync":
+            res[name]["result"] = res[name]["result"]["summary"]
+    res["path_s"] = time.perf_counter() - t_path
+    res["launches"] = dict(launches)
+    report["phy_options"] = res
+    print(f"[{card}] phy_options: (a)-(e) passed their gates in "
+          f"{res['path_s']:.1f} s; launches on the path: "
+          + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return dict(launches), catch, syn
+
+
+def phase_options_kernels(dev, report, catch, syn):
+    """7f: B1 on every (K, rows) the phy_options path handed it (one window
+    at the PCC's and the MMIE packet's K, windowed at the flagship's PDC),
+    bit for bit its plain twin (`bcjr_caught`); B2 on the [64, 1, 192,512]
+    streams of its sync part with the RMS gate off and on (`_sync_check`:
+    the plain twin off gate ties, the tiled twin), each timed beside its
+    plain twin and bound, gate off and on in turns (off, on, on, off)."""
+    from dectnrp_tpu_torch.kernels import graph_us
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+
+    require(catch.bcjr and {56, 96} <= {K for K, _ in catch.bcjr},
+            f"phy_options: B1 inputs not caught ({sorted(catch.bcjr)})")
+    out = {"bcjr": bcjr_caught(catch, "phy_options", dev), "sync": {}}
+    runs = {}
+    for gated, (s, ys) in (("off", syn["ungated"]), ("on", syn["gated"])):
+        label = f"{list(ys.shape)}_b{s.P // 16}_rms_gate_{gated}".replace(" ", "")
+        err, err_t = _sync_check(s, ys, f"phy_options_{label}", report)
+        pr = s.params
+        sargs = (s.P, s.w, s.sl, s.sr, pr.metric_threshold, pr.metric_max)
+        gate = {"rms_min": pr.rms_min, "rms_max": pr.rms_max}
+        runs[gated] = lambda sargs=sargs, gate=gate, ys=ys: sync_detect.detect_sm(
+            ys, *sargs, **gate)
+        b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
+        out["sync"][label] = {
+            "max_abs_err": err, "max_abs_err_tiled": err_t,
+            "rms_min": pr.rms_min,
+            "eager_ms": cuda_ms(runs[gated]),
+            "plain_ms": 1e-3 * graph_us(lambda sargs=sargs, gate=gate, ys=ys:
+                                        sync_detect.detect_sm_plain(ys, *sargs, **gate),
+                                        reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    # the gate's cost: graph replays in turns on the same streams
+    turns = [1e-3 * graph_us(runs[g]) for g in ("off", "on", "on", "off")]
+    for label, v in out["sync"].items():
+        v["ms"] = turns[0] if label.endswith("off") else turns[1]
+        v["ms_again"] = turns[3] if label.endswith("off") else turns[2]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU")
@@ -1942,6 +2103,12 @@ def main() -> int:
     sync_errs.append(_sync_check(s_rt, y_rt, "runtime_u1b1", report))
     sync_err = max(e for e, _ in sync_errs)
     sync_err_tiled = max(e for _, e in sync_errs)
+    # the RMS gate is skipped at rms_min = 0: B2 is then bit for bit its
+    # tiled twin at the streams of the shapes phase 7 times
+    for label in ("b16", "wall_b8_R4", "u8b16", "runtime_u1b1"):
+        require(report[f"sync_check_{label}"]["bit_equal_tiled"] == 1.0,
+                f"sync {label}: not bit for bit the tiled twin at rms_min = 0 "
+                f"({report[f'sync_check_{label}']})")
 
     # ---- 5. polyphase kernel vs plain twin
     poly_err, poly_err_tiled = phase_polyphase(wall, dev, report)
@@ -1989,6 +2156,12 @@ def main() -> int:
     # ---- 6e. the real-IQ radios: file and UDP ingress, the paced egress,
     # configurations/socket_radio and the application layer, counted
     launches["iq_ingress"], iq_catch = phase_iq(dev, card, report)
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    # ---- 6f. the builder options at the flagship's width: TX windowing,
+    # beamforming, beta / integer CFO and the RMS gate, the chestim
+    # options, the MMIE round trip, counted
+    launches["phy_options"], opt_catch, opt_sync = phase_options(dev, card, report)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 7. times [card]
@@ -2189,6 +2362,12 @@ def main() -> int:
     iq_times = phase_runtime_kernels(dev, report, iq_catch, "iq_ingress")
     report["kernel_ms"]["iq_ingress"] = iq_times
     print_path_times(card, "iq_ingress", iq_times)
+    # ---- 7f. B1 and B2 on the inputs the phy_options path handed them, B2
+    # with the RMS gate off and on
+    opt_times = phase_options_kernels(dev, report, opt_catch, opt_sync)
+    del opt_sync
+    report["kernel_ms"]["phy_options"] = opt_times
+    print_path_times(card, "phy_options", opt_times)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 8. profiles
@@ -2216,7 +2395,8 @@ def main() -> int:
          "library_ms": None, "one_window": one_window,
          "loopback": path_entry(lb_times["bcjr"]),
          "runtime": path_entry(rt_times["bcjr"]),
-         "iq_ingress": path_entry(iq_times["bcjr"])},
+         "iq_ingress": path_entry(iq_times["bcjr"]),
+         "phy_options": path_entry(opt_times["bcjr"])},
         {"name": "bcjr_posterior_cm_bf16", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:188",
@@ -2227,7 +2407,7 @@ def main() -> int:
          "blocks_per_sm": report["bcjr_bf16_blocks_per_sm"],
          "shapes": {k: {kk: v[kk] for kk in ("ms", "bcjr_ms", "bound_ms")}
                     for k, v in bf16_shapes.items()},
-         "loopback": {}, "runtime": {}, "iq_ingress": {}},
+         "loopback": {}, "runtime": {}, "iq_ingress": {}, "phy_options": {}},
         {"name": "sync_detect_sm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",
          "replaces": "dectnrp_tpu/phy/ops/sync_detect.py:62",
@@ -2242,7 +2422,8 @@ def main() -> int:
                     for k, v in sync_times.items()},
          "loopback": path_entry(lb_times["sync"]),
          "runtime": path_entry(rt_times["sync"]),
-         "iq_ingress": path_entry(iq_times["sync"])},
+         "iq_ingress": path_entry(iq_times["sync"]),
+         "phy_options": path_entry(opt_times["sync"])},
         {"name": "polyphase_fir", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
          "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",
@@ -2255,7 +2436,7 @@ def main() -> int:
                     for k, v in poly.items()},
          "loopback": path_entry(lb_times["polyphase"]),
          "runtime": path_entry(rt_times["polyphase"]),
-         "iq_ingress": path_entry(iq_times["polyphase"])}]}
+         "iq_ingress": path_entry(iq_times["polyphase"]), "phy_options": {}}]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,8 @@
-"""Common infrastructure of the port (see dectnrp_tpu/common): the batched
-JSON record export (`json_export.py`), the native host runtime's bindings
-(`native.py`) and the live-IQ TCP scope (`tcp_scope.py`)."""
+"""Common infrastructure of the port (see dectnrp_tpu/common): clocks
+(`watch.py`), logging (`logging.py`), the batched JSON record export
+(`json_export.py`), the native host runtime's bindings (`native.py`) and
+the live-IQ TCP scope (`tcp_scope.py`)."""
+from .json_export import JsonExport
+from .watch import Watch
+
+__all__ = ["JsonExport", "Watch"]

@@ -5,6 +5,14 @@
 //   C[t]  = sum_j w_j * movsum_P(x[i] conj(x[i+P]))[t + jP]
 //   P2[t] = movsum_L(|x|^2)[t]                (both summed over R antennas)
 //   metric = n_pat/(n_pat-1) |C| / P2, gated to (thr, mmax) and t in [0, n_t),
+//   and, where p2_lo > 0, to P2 in [p2_lo, p2_hi]: the RMS window gate
+//   rms = sqrt(P2 / (n_pat P R)) in (rms_min, rms_max) (JAX phy/sync.py:
+//   176-177, which the TPU kernel cannot fold and routes to XLA). IEEE
+//   division and square root are monotone, so the gate is exactly an
+//   interval of P2, whose float32 ends the wrapper finds on the host
+//   (phy/ops/sync_detect.py::rms_gate_bounds): two compares a sample in
+//   place of a division and a square root, the same decision at every
+//   P2, ties included. p2_lo <= 0 skips the gate,
 //   sm[t] = sum of the gated metric over [t-sl, t+sr], divided by k.
 //
 // Bound: memory. x is read once and sm written once (B R T 8 + B n_t 4
@@ -143,8 +151,8 @@ template <int V, int Q>
 __global__ void __launch_bounds__(NT, 2)
 sync_sm_kernel(const float2* __restrict__ x, const float* __restrict__ w,
                float* __restrict__ sm, int R, int T, int n_pat, int sl, int sr,
-               float thr, float mmax, int RC, int n_rows, int span,
-               int n_span, int vec_in, int vec_out) {
+               float thr, float mmax, float p2_lo, float p2_hi, int RC,
+               int n_rows, int span, int n_span, int vec_in, int vec_out) {
   constexpr int P = Q * V;
   constexpr int G = NT / Q;           // row groups: rows a sub-tile
   extern __shared__ float smem[];
@@ -387,7 +395,8 @@ sync_sm_kernel(const float2* __restrict__ x, const float* __restrict__ w,
         const float mag = sqrtf(__fadd_rn(__fmul_rn(cr[k], cr[k]), __fmul_rn(ci[k], ci[k])));
         const float met = __fmul_rn(__fmul_rn(norm, mag), __frcp_rn(fmaxf(p2, 1e-20f)));
         const long long t = (long long)m * P + lq * V + k;
-        g[k] = (t >= 0 && t < n_t && met > thr && met < mmax) ? met : 0.f;
+        const bool rms_ok = p2_lo <= 0.f || (p2 >= p2_lo && p2 <= p2_hi);
+        g[k] = (t >= 0 && t < n_t && met > thr && met < mmax && rms_ok) ? met : 0.f;
       }
       const float tg = row_excl_scan<V, Q>(g, lq);
       if (m >= o0 - 1 && m <= o_end) {
@@ -406,7 +415,8 @@ sync_sm_kernel(const float2* __restrict__ x, const float* __restrict__ w,
 }
 
 using KernelFn = void (*)(const float2*, const float*, float*, int, int, int, int,
-                          int, float, float, int, int, int, int, int, int);
+                          int, float, float, float, float, int, int, int, int,
+                          int, int);
 
 KernelFn pick(int P) {
   switch (P) {
@@ -457,7 +467,8 @@ extern "C" int sync_detect_blocks_per_sm(int P, int n_pat, int RC) {
 }
 
 // x: complex64 [B, R, T] as interleaved float32 pairs; w: float32 [n_pat-1];
-// sm: float32 [B, n_t], n_t = T - (n_pat+1) P. Each block walks `span`
+// sm: float32 [B, n_t], n_t = T - (n_pat+1) P; p2_lo > 0 turns the RMS gate
+// (P2 in [p2_lo, p2_hi]) on, p2_lo <= 0 leaves it off. Each block walks `span`
 // output rows of P samples of one stream and takes the antennas RC at a
 // time. Launches on `stream`; returns the cudaError_t of the launch,
 // cudaErrorInvalidValue for a shape the tiling does not serve or an RC
@@ -465,8 +476,8 @@ extern "C" int sync_detect_blocks_per_sm(int P, int n_pat, int RC) {
 // ::kernel_plan names the reason).
 extern "C" int sync_detect_sm(const void* x, const void* w, void* sm, int B,
                               int R, int T, int P, int n_pat, int sl, int sr,
-                              float thr, float mmax, int RC, int span,
-                              void* stream) {
+                              float thr, float mmax, float p2_lo, float p2_hi,
+                              int RC, int span, void* stream) {
   if (B <= 0 || span <= 0 || check_shape(R, T, P, n_pat, sl, sr, RC) != 0)
     return (int)cudaErrorInvalidValue;
   const int n_t = T - (n_pat + 1) * P;
@@ -482,6 +493,6 @@ extern "C" int sync_detect_sm(const void* x, const void* w, void* sm, int B,
   const int vec_out = (n_t % 4 == 0) && ((uintptr_t)sm % 16 == 0);
   k<<<n_span * B, NT, smem, (cudaStream_t)stream>>>(
       (const float2*)x, (const float*)w, (float*)sm, R, T, n_pat, sl, sr, thr,
-      mmax, RC, n_rows, span, n_span, vec_in, vec_out);
+      mmax, p2_lo, p2_hi, RC, n_rows, span, n_span, vec_in, vec_out);
   return (int)cudaGetLastError();
 }

@@ -58,7 +58,8 @@ def _declare(lib):
     lib.bcjr_posterior_cm_bf16.restype = i
     lib.bcjr_bf16_blocks_per_sm.argtypes = [i]
     lib.bcjr_bf16_blocks_per_sm.restype = i
-    lib.sync_detect_sm.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, i, i, p]
+    lib.sync_detect_sm.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, f, f, i,
+                                   i, p]
     lib.sync_detect_sm.restype = i
     lib.sync_detect_blocks_per_sm.argtypes = [i, i, i]
     lib.sync_detect_blocks_per_sm.restype = i

@@ -9,6 +9,13 @@ with STF pattern length P = 16 b and n_pat patterns (L = n_pat P):
   metric = n_pat/(n_pat-1) * |C| / P2, gated to (thr, mmax), zero outside
   [0, n_t) with n_t = T - L - P, box-smoothed over [t-sl, t+sr] / k.
 
+With rms_min > 0 the RMS window gate of JAX's XLA route
+(dectnrp_tpu/phy/sync.py:176-177) also applies: rms = sqrt(P2 / (L R)) in
+(rms_min, rms_max). The TPU kernel cannot fold it; the CUDA kernel does, as
+the P2 interval `rms_gate_bounds` gives (the same decision at every P2),
+and at rms_min <= 0 skips it, so its output is then what it was without.
+The twins compute the RMS itself, as JAX does.
+
 `detect_sm` launches the kernel (csrc/sync_detect.cu) for CUDA tensors and
 runs `detect_sm_plain` (the `sm` of phy/sync.py::_detect_xla, T-long
 blocked float32 prefix sums) for CPU tensors; any other device raises.
@@ -21,9 +28,11 @@ unlike the TPU kernel (P % 128 == 0) that includes b = 1, 2, 4 and 12.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 launches = 0          # kernel launches made by detect_sm
@@ -66,27 +75,69 @@ def detect_metric_plain(iq: torch.Tensor, P: int, w: torch.Tensor):
     return metric, Cs, P2s
 
 
+def detect_rms(P2s: torch.Tensor, n_lr: int) -> torch.Tensor:
+    """The RMS gate's statistic sqrt(P2 / n_lr), n_lr = L R samples, as an
+    IEEE division (by a tensor: torch multiplies by the reciprocal of a
+    Python scalar on the card) and a square root, as JAX computes it."""
+    return torch.sqrt(P2s / torch.full_like(P2s, float(n_lr)))
+
+
+@lru_cache(maxsize=None)
+def rms_gate_bounds(rms_min: float, rms_max: float, n_lr: int) -> tuple[float, float]:
+    """(p2_lo, p2_hi): the float32 P2 for which rms = sqrt(P2 / n_lr), a
+    float32 IEEE division and square root as JAX and the twins compute it,
+    lies in (rms_min, rms_max) (as float32) are exactly [p2_lo, p2_hi].
+    Both operations are monotone, so that set is an interval of P2; its
+    ends are found by bisection over the bit patterns of the float32 values
+    from 0 to inf (a NaN end: no P2 passes)."""
+    n, r_lo, r_hi = np.float32(n_lr), np.float32(rms_min), np.float32(rms_max)
+
+    def f32(bits):
+        return np.array(bits, np.int32).view(np.float32)
+
+    def first(pred):
+        """Smallest bit pattern in [0, inf + 1] where the monotone pred holds."""
+        a, b = 0, 0x7F800001
+        while a < b:
+            m = (a + b) // 2
+            a, b = (a, m) if pred(np.sqrt(f32(m) / n)) else (m + 1, b)
+        return a
+    return (float(f32(first(lambda r: r > r_lo))),
+            float(f32(first(lambda r: not r < r_hi) - 1)))
+
+
 def detect_sm_plain(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int,
-                    sr: int, thr: float, mmax: float) -> torch.Tensor:
+                    sr: int, thr: float, mmax: float, *, rms_min: float = 0.0,
+                    rms_max: float = math.inf) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: iq complex64 [B, R, T] -> sm [B, n_t]."""
-    metric, _, _ = detect_metric_plain(iq, P, w)
-    g = torch.where((metric > thr) & (metric < mmax), metric,
-                    torch.zeros_like(metric))
+    metric, _, P2s = detect_metric_plain(iq, P, w)
+    gate = (metric > thr) & (metric < mmax)
+    if rms_min > 0.0:
+        rms = detect_rms(P2s, (w.numel() + 1) * P * iq.shape[1])
+        gate &= (rms > rms_min) & (rms < rms_max)
+    g = torch.where(gate, metric, torch.zeros_like(metric))
     k = sl + sr + 1
     Sm = _prefix0(torch.nn.functional.pad(g, (sl, sr)))
     return (Sm[..., k:] - Sm[..., :-k]) / k
 
 
 def gate_tie_mask(metric: torch.Tensor, thr: float, mmax: float, sl: int,
-                  sr: int, eps: float) -> torch.Tensor:
+                  sr: int, eps: float, rms: torch.Tensor | None = None,
+                  rms_min: float = 0.0,
+                  rms_max: float = math.inf) -> torch.Tensor:
     """[B, n_t] True where no sample in the smoothing window [t-sl, t+sr]
-    has a metric within eps of a gate edge.
+    has a metric within eps of a gate edge, nor, with the RMS gate on
+    (rms_min > 0), an rms within eps relative of rms_min or rms_max.
 
     Two correct float32 implementations may gate such a sample differently
     (a tie), which moves sm by metric/k over the window; outside these
     windows the two must agree to rounding.
     """
     tie = (((metric - thr).abs() < eps) | ((metric - mmax).abs() < eps))
+    if rms_min > 0.0:
+        tie |= (rms - rms_min).abs() < eps * rms_min
+        if math.isfinite(rms_max):
+            tie |= (rms - rms_max).abs() < eps * rms_max
     k = sl + sr + 1
     S = _prefix0(torch.nn.functional.pad(tie.to(torch.float32), (sl, sr)))
     return (S[..., k:] - S[..., :-k]) == 0
@@ -214,12 +265,14 @@ class _Ring:
 
 def detect_sm_tiled(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int,
                     sr: int, thr: float, mmax: float,
-                    span_rows: int | None = None) -> torch.Tensor:
+                    span_rows: int | None = None, *, rms_min: float = 0.0,
+                    rms_max: float = math.inf) -> torch.Tensor:
     """The kernel's computation in plain torch: sm [B, n_t] of iq complex64
     [B, R, T], block by block (each `span_rows` output rows of a stream,
     default all), sub-tile by sub-tile of G rows and antenna stage by stage,
     through the same buffers and rings, with the kernel's order of float32
-    operations. Values do not depend on the span: every sum is row-local."""
+    operations, the RMS gate included. Values do not depend on the span:
+    every sum is row-local."""
     B, R, T = iq.shape
     n_pat = w.numel() + 1
     pl = kernel_plan(R, T, P, n_pat, sl, sr)
@@ -324,8 +377,11 @@ def detect_sm_tiled(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int,
             met = (norm * torch.sqrt(cr * cr + ci * ci)) * torch.reciprocal(
                 torch.maximum(p2, eps))
             t = torch.tensor(ms, device=dev)[:, None, None] * P + pos
-            g = torch.where((t >= 0) & (t < n_t) & (met > thr32) & (met < mmax32),
-                            met, torch.zeros_like(met))
+            gate = (t >= 0) & (t < n_t) & (met > thr32) & (met < mmax32)
+            if rms_min > 0.0:
+                rms = detect_rms(p2, n_pat * P * R)
+                gate &= (rms > one(rms_min)) & (rms < one(rms_max))
+            g = torch.where(gate, met, torch.zeros_like(met))
             gpre, gt = _row_excl_scan(g, V, Q)
             gring.put(ms, gpre, need_g)
             gtot.put(ms, gt, need_g)
@@ -355,15 +411,18 @@ def detect_sm_tiled(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int,
 
 
 def detect_sm(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int, sr: int,
-              thr: float, mmax: float) -> torch.Tensor:
+              thr: float, mmax: float, *, rms_min: float = 0.0,
+              rms_max: float = math.inf) -> torch.Tensor:
     """Smoothed gated metric sm [B, n_t] of iq complex64 [B, R, T].
 
     w: float32 [n_pat-1] pairwise cover weights, on iq's device.
+    rms_min > 0 adds the RMS window gate (rms_min, rms_max).
     CUDA tensors launch the kernel, each block walking about one wave's
     share of a stream (`default_span`); CPU tensors run the plain twin.
     """
     if iq.device.type == "cpu":
-        return detect_sm_plain(iq, P, w, sl, sr, thr, mmax)
+        return detect_sm_plain(iq, P, w, sl, sr, thr, mmax, rms_min=rms_min,
+                               rms_max=rms_max)
     if iq.device.type != "cuda":
         raise ValueError(f"detect_sm: unsupported device {iq.device}")
     if iq.dtype != torch.complex64 or iq.dim() != 3 or not iq.is_contiguous():
@@ -377,10 +436,12 @@ def detect_sm(iq: torch.Tensor, P: int, w: torch.Tensor, sl: int, sr: int,
     from ... import kernels
 
     lib = kernels.load()
+    p2_lo, p2_hi = (rms_gate_bounds(float(rms_min), float(rms_max), n_pat * P * R)
+                    if rms_min > 0.0 else (0.0, 0.0))
     sm = torch.empty((B, pl.n_t), dtype=torch.float32, device=iq.device)
     err = lib.sync_detect_sm(torch.view_as_real(iq).data_ptr(), w.data_ptr(),
                              sm.data_ptr(), B, R, T, P, n_pat, sl, sr,
-                             float(thr), float(mmax), pl.RC, span,
+                             float(thr), float(mmax), p2_lo, p2_hi, pl.RC, span,
                              kernels.stream_ptr(iq.device))
     kernels.check(err, "sync_detect_sm")
     global launches

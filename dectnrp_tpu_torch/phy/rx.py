@@ -5,20 +5,32 @@ packets and RX antennas:
 
   iq -> STF residual CFO -> CP strip + batched FFT -> DRS ZF estimates
      -> DRS CFO refinement, fractional STO, 4th-order SNR estimate
-     -> Wiener bank (SNR x selectivity) in frequency, linear in time
+     -> frequency interpolation (Wiener bank: SNR x selectivity) x time
+        interpolation (lr_t / lr_f, or the Doppler-selected Wiener bank)
      -> PCC: MRC or Alamouti combine -> QPSK soft demap -> blind PLCF
         type 1 AND 2 decode
-     -> PDC: MRC or Alamouti combine -> soft demap -> turbo decode -> TB CRC.
+     -> PDC: MRC (+ decision-directed phase refinement), Alamouti or MMSE
+        -> soft demap -> turbo decode -> TB CRC.
 
-This port is `build_rx` at its chestim defaults: chestim_mode="lr_t",
-freq_kind="wiener", time_kind="linear", dd_passes=0, est_sto and est_cfo
-on; for one spatial stream (N_SS = 1) over N_TS = 1 (MRC) or N_TS = 2/4/8
-transmit streams (Alamouti), and for N_SS > 1 spatial streams (MMSE per
-cell, JAX rx.py:73-93, 486-495; the PCC stays Alamouti over N_TS). With
-genie=True the receiver equalizes with a given TRUE channel in place of the
-DRS estimates (JAX rx.py:145-146, 302-314) and estimates no CFO or STO. Any
-other value of the chestim options raises NotImplementedError (queued in
-ROADMAP.md).
+Every option of the JAX builder (JAX rx.py:120-509):
+- chestim_mode "lr_t" (between the DRS symbols) or "lr_f" (causal);
+- freq_kind "wiener" (the two-axis bank), "linear", or any other string,
+  which like JAX's gives one Wiener matrix at `freq_interp_matrices`'
+  defaults (chestim.py:111-126);
+- time_kind "wiener" with lr_t and >= 2 DRS symbols a transmit stream: the
+  bank of `wiener_time_matrix` over NU_TIME_PRESETS, one-hot selected by
+  the measured DRS-step correlation; else linear;
+- dd_passes: per-symbol common-phase refinement of the PDC's MRC channel
+  from its own hard decisions, applied where the channel measures
+  frequency-selective (N_TS = 1);
+- est_sto / est_cfo: the fractional STO ramp and the residual CFO
+  (STF pattern pairs + DRS symbol pairs) on or off; est_sto also sets
+  `centered=` of the Wiener bank;
+- one spatial stream (N_SS = 1) over N_TS = 1 (MRC) or N_TS = 2/4/8
+  transmit streams (Alamouti), and N_SS > 1 spatial streams (MMSE per cell,
+  JAX rx.py:73-93, 486-495; the PCC stays Alamouti over N_TS);
+- genie=True: a given TRUE channel in place of the DRS estimates (JAX
+  rx.py:145-146, 302-314), no CFO or STO estimated.
 """
 from __future__ import annotations
 
@@ -29,10 +41,12 @@ from ..sections.part3.drs import get_N_step
 from ..sections.part3.packet_sizes import PacketSizesDef
 from ..sections.part3.stf import cover_sequence, n_stf_patterns
 from ..sections.part3.tx_div import TS_PAIRS, get_modulo
-from .chestim import (WIENER_PRESETS, comb_offsets, freq_interp_matrices,
-                      time_interp_matrix)
+from ..sections.part3.drs import nof_drs_symbols_per_ts
+from .chestim import (NU_TIME_PRESETS, WIENER_PRESETS, _j0, comb_offsets,
+                      freq_interp_matrices, time_interp_matrix,
+                      wiener_time_matrix)
 from .fec.chain import PdcPlan, pcc_decode, pdc_decode
-from .modulation import demap_llr
+from .modulation import demap_llr, hard_decision
 from .packet_config import get_packet_luts
 from .plan import register_tables
 
@@ -116,9 +130,8 @@ def _alamouti(y, h, ts_a, ts_b):
     return x, csi
 
 
-#: the options of dectnrp_tpu/phy/rx.py::build_rx and their defaults; the
-#: port takes each chestim option only at its default, and `genie` at both
-#: values (genie forces est_sto and est_cfo off, as JAX's does)
+#: the options of dectnrp_tpu/phy/rx.py::build_rx and their defaults
+#: (genie forces est_sto and est_cfo off, as JAX's does)
 RX_DEFAULTS = {"chestim_mode": "lr_t", "freq_kind": "wiener",
                "time_kind": "linear", "dd_passes": 0, "est_sto": True,
                "est_cfo": True, "genie": False}
@@ -130,11 +143,17 @@ class Rx(torch.nn.Module):
     required with genie=True and refused otherwise."""
 
     def __init__(self, psdef: PacketSizesDef, network_id: int, plcf_type: int,
-                 n_iter: int = 6, genie: bool = False):
+                 chestim_mode: str = "lr_t", freq_kind: str = "wiener",
+                 time_kind: str = "linear", dd_passes: int = 0,
+                 n_iter: int = 6, est_sto: bool = True, est_cfo: bool = True,
+                 genie: bool = False):
         super().__init__()
+        if genie:
+            est_sto = est_cfo = False
         luts = get_packet_luts(psdef)
         ps = self.ps = luts.ps
-        self.genie = genie
+        self.genie, self.est_sto, self.est_cfo = genie, est_sto, est_cfo
+        self.dd_passes = dd_passes
         self.N_TS = N_TS = ps.tm_mode.N_TS
         self.N_SS = ps.tm_mode.N_SS
         q = ps.numerology
@@ -145,22 +164,39 @@ class Rx(torch.nn.Module):
         self.plan = PdcPlan.get(ps.N_TB_bits, ps.G, ps.mcs.N_bps, psdef.Z)
         self.rx_scale = float(np.sqrt(N_occ) / N)
 
-        # Wiener bank on two axes: estimated SNR (narrow presets) and
-        # measured selectivity (wide Wiener at low SNR, clamped linear
-        # above), as dectnrp_tpu/phy/rx.py:164-184
-        tau_narrow = min(tau for tau, _ in WIENER_PRESETS)
-        Wf_bank = [freq_interp_matrices(psdef.b, "wiener", tau_narrow, sn,
-                                        centered=True, u=psdef.u)
-                   for _, sn in WIENER_PRESETS]
-        Wf_bank += [freq_interp_matrices(psdef.b, "wiener", 1000e-9,
-                                         WIENER_PRESETS[0][1], centered=True,
-                                         u=psdef.u),
-                    freq_interp_matrices(psdef.b, "linear"),
-                    freq_interp_matrices(psdef.b, "linear")]
-        preset_snrs = np.array([sn for _, sn in WIENER_PRESETS], np.float32)
+        if freq_kind == "wiener":
+            # Wiener bank on two axes: estimated SNR (narrow presets) and
+            # measured selectivity (wide Wiener at low SNR, clamped linear
+            # above), as dectnrp_tpu/phy/rx.py:164-184
+            tau_narrow = min(tau for tau, _ in WIENER_PRESETS)
+            Wf_bank = [freq_interp_matrices(psdef.b, "wiener", tau_narrow, sn,
+                                            centered=est_sto, u=psdef.u)
+                       for _, sn in WIENER_PRESETS]
+            Wf_bank += [freq_interp_matrices(psdef.b, "wiener", 1000e-9,
+                                             WIENER_PRESETS[0][1],
+                                             centered=est_sto, u=psdef.u),
+                        freq_interp_matrices(psdef.b, "linear"),
+                        freq_interp_matrices(psdef.b, "linear")]
+            preset_snrs = np.array([sn for _, sn in WIENER_PRESETS], np.float32)
+        else:
+            Wf_bank = [freq_interp_matrices(psdef.b, freq_kind)]
+            preset_snrs = np.zeros(1, np.float32)
         combs = comb_offsets(psdef.u, psdef.b, S, N_TS)           # [T, n_symb]
         self.comb_vals = [int(c) for c in np.unique(combs)]
         self.n_wf = len(Wf_bank)
+        # the Doppler axis: time-Wiener presets selected by the measured
+        # DRS-step correlation rho, the bounds midway between the presets'
+        # own J0(2 pi nu N_step) (dectnrp_tpu/phy/rx.py:188-200)
+        Tm_bank = [time_interp_matrix(psdef.u, psdef.b, S, N_TS, chestim_mode)]
+        rho_bounds = np.zeros(0, np.float32)
+        if (chestim_mode == "lr_t" and time_kind == "wiener"
+                and nof_drs_symbols_per_ts(psdef.u, S, N_TS) >= 2):
+            Tm_bank = [wiener_time_matrix(psdef.u, psdef.b, S, N_TS, nu)
+                       for nu in NU_TIME_PRESETS]
+            rho_p = _j0(2.0 * np.pi * np.asarray(NU_TIME_PRESETS)
+                        * get_N_step(N_TS))
+            rho_bounds = ((rho_p[1:] + rho_p[:-1]) / 2.0).astype(np.float32)
+        self.n_tm = len(Tm_bank)
 
         P_stf = self.P_stf = 16 * psdef.b
         self.n_pat = n_stf_patterns(psdef.u)
@@ -181,10 +217,15 @@ class Rx(torch.nn.Module):
             "pair_ok": (np.diff(sc_drs, axis=-1) == 4).astype(np.float32),
             "t_sym": np.arange(S, dtype=np.float32) * (N + cp),
             "ksc": np.arange(N, dtype=np.float32) - N // 2,
-            "preset_snrs": preset_snrs,
-            "Tm": time_interp_matrix(psdef.u, psdef.b, S, N_TS,
-                                     "lr_t").astype(np.complex64),
+            "preset_snrs": preset_snrs, "rho_bounds": rho_bounds,
         }
+        if dd_passes and N_TS == 1:
+            # the OFDM symbol of each PDC cell, as an index and one-hot
+            sym_of_pdc = np.asarray(luts.pdc_lin) // N
+            tables["sym_of_pdc"] = sym_of_pdc
+            tables["pdc_sym_onehot"] = np.eye(S, dtype=np.complex64)[sym_of_pdc]
+        for i, Tm in enumerate(Tm_bank):
+            tables[f"tm{i}"] = Tm.astype(np.complex64)
         if N_TS > 1:
             tables["pcc_tsa"], tables["pcc_tsb"] = _pair_ts(98, N_TS)
         if N_TS > 1 and self.N_SS == 1:
@@ -217,7 +258,7 @@ class Rx(torch.nn.Module):
             raise ValueError("rx: h_genie is required with genie=True and "
                              "only then")
 
-        if self.genie:
+        if not self.est_cfo:
             cfo_res = torch.zeros((B,), dtype=torch.float32, device=iq.device)
         else:
             # residual fractional CFO from STF pattern pairs: lag P, then lag
@@ -248,7 +289,7 @@ class Rx(torch.nn.Module):
         h_zf = (gf[..., self.drs_lin] * self.drs_conj).reshape(B, R, N_TS, ns, n4)
 
         # residual-CFO refinement from the DRS symbol-pair phase progression
-        if ns >= 2:
+        if self.est_cfo and ns >= 2:
             prod = (h_zf[..., 1:, :] * torch.conj(h_zf[..., :-1, :])).sum((1, 2, 4))
             dphi = torch.angle(prod.sum(-1))
             cfo2 = dphi / (self.N_step_drs * (N + cp))
@@ -259,10 +300,13 @@ class Rx(torch.nn.Module):
             cfo_res = cfo_res + cfo2
 
         # fractional STO: phase slope across the DRS pilots
-        qs = (h_zf[..., 1:] * torch.conj(h_zf[..., :-1])
-              * self.pair_ok).sum((1, 2, 3, 4))
-        theta = torch.angle(qs) / 4.0
-        h_zf = h_zf * _cexp(-(theta[:, None, None, None, None] * self.sc_drs))
+        if self.est_sto:
+            qs = (h_zf[..., 1:] * torch.conj(h_zf[..., :-1])
+                  * self.pair_ok).sum((1, 2, 3, 4))
+            theta = torch.angle(qs) / 4.0
+            h_zf = h_zf * _cexp(-(theta[:, None, None, None, None] * self.sc_drs))
+        else:
+            theta = torch.zeros((B,), dtype=torch.float32, device=iq.device)
         sto_frac = -theta * N / (2.0 * np.pi)
 
         # preamble/DRS SNR from 4th-order pilot differences (E|d4|^2 = 70 s^2)
@@ -276,20 +320,44 @@ class Rx(torch.nn.Module):
         h_end = h_zf[..., -1, :]                                  # [B,R,T,n4]
         h_cells = h_end[..., :n4 // 4 * 4].reshape(B, R, N_TS, 4, -1).mean(-1)
 
+        if self.n_tm > 1:
+            sel_t = torch.nn.functional.one_hot(
+                self._time_preset(h_zf, nois), self.n_tm).to(torch.complex64)
+
         # frequency interpolation: SNR x selectivity one-hot mix of the bank
-        snr_idx = (snr_db[:, None] - self.preset_snrs).abs().argmin(1)
-        d2m = ((h_zf[..., 2:] - 2.0 * h_zf[..., 1:-1] + h_zf[..., :-2]
-                ).abs() ** 2).mean((1, 2, 3, 4))
-        c2 = (d2m - 6.0 * nois).clamp_min(0.0)
-        selective = (c2 / spn.clamp_min(1e-12)) > 3e-4
-        idx = snr_idx + 3 * selective.to(snr_idx.dtype)
-        sel = torch.nn.functional.one_hot(idx, self.n_wf).to(torch.complex64)
-        hf = sum(sel[:, i, None, None, None, None] * self._interp(h_zf, i)
-                 for i in range(self.n_wf))
-        chest = torch.einsum("tsn,brtnk->brtsk", self.Tm, hf)
+        if self.n_wf == 1:
+            selective = torch.zeros((B,), dtype=torch.bool, device=iq.device)
+            hf = self._interp(h_zf, 0)
+        else:
+            snr_idx = (snr_db[:, None] - self.preset_snrs).abs().argmin(1)
+            d2m = ((h_zf[..., 2:] - 2.0 * h_zf[..., 1:-1] + h_zf[..., :-2]
+                    ).abs() ** 2).mean((1, 2, 3, 4))
+            c2 = (d2m - 6.0 * nois).clamp_min(0.0)
+            selective = (c2 / spn.clamp_min(1e-12)) > 3e-4
+            idx = snr_idx + 3 * selective.to(snr_idx.dtype)
+            sel = torch.nn.functional.one_hot(idx, self.n_wf).to(torch.complex64)
+            hf = sum(sel[:, i, None, None, None, None] * self._interp(h_zf, i)
+                     for i in range(self.n_wf))
+        if self.n_tm == 1:
+            chest = torch.einsum("tsn,brtnk->brtsk", self.tm0, hf)
+        else:
+            chest = sum(sel_t[:, i, None, None, None, None]
+                        * torch.einsum("tsn,brtnk->brtsk", getattr(self, f"tm{i}"), hf)
+                        for i in range(self.n_tm))
         cf = chest.reshape(B, R, N_TS, S * N_occ)
         return self._finish(gf, cf, theta, sto_frac, cfo_res, snr_db, h_cells,
-                            nv_bin, B)
+                            nv_bin, B, selective)
+
+    def _time_preset(self, h_zf, nois):
+        """The time-Wiener preset [B] of each packet: the measured DRS-step
+        correlation magnitude rho = |sum h[n+1] h[n]*| / (sum |h[n]|^2 -
+        noise bias) against the bank's rho bounds (the Doppler axis)."""
+        R, _, ns, n4 = h_zf.shape[1:]
+        qt = (h_zf[..., 1:, :] * torch.conj(h_zf[..., :-1, :])).sum((1, 2, 3, 4))
+        d_t = (h_zf[..., :-1, :].abs() ** 2).sum((1, 2, 3, 4))
+        cnt = R * self.N_TS * (ns - 1) * n4
+        rho = qt.abs() / (d_t - nois * cnt).clamp_min(1e-12)
+        return (rho[:, None] < self.rho_bounds).sum(1)
 
     def _genie(self, gf, h_genie, cfo_res, nv_bin, B, R):
         """The true channel in place of DRS ZF and interpolation; no STO."""
@@ -303,7 +371,8 @@ class Rx(torch.nn.Module):
         h_end = h_genie[..., S - 1, 0::4]                         # [B,R,T,n4]
         h_cells = h_end[..., :n4 // 4 * 4].reshape(B, R, self.N_TS, 4, -1).mean(-1)
         return self._finish(gf, cf, zero, zero, cfo_res, snr_db, h_cells,
-                            nv_bin, B)
+                            nv_bin, B, torch.zeros((B,), dtype=torch.bool,
+                                                   device=gf.device))
 
     def _combine(self, y, h, name):
         """MRC over the RX rows for one transmit stream, Alamouti otherwise:
@@ -313,8 +382,25 @@ class Rx(torch.nn.Module):
         return _alamouti(y, h, getattr(self, f"{name}_tsa"),
                          getattr(self, f"{name}_tsb"))
 
+    def _dd_refine(self, x_pdc, csi_pdc, y_pdc, h1, selective):
+        """Decision-directed chestim refinement (JAX rx.py:446-478): per
+        pass, the hard decisions' residual against the channel estimate,
+        summed per OFDM symbol, gives a per-symbol common phase that
+        corrects h; applied only where the channel measured selective."""
+        use = selective[:, None]
+        for _ in range(self.dd_passes):
+            dec = hard_decision(x_pdc, self.ps.mcs.N_bps)           # [B,n]
+            resid = (y_pdc * torch.conj(dec)[:, None, :] * torch.conj(h1)).sum(1)
+            r_sym = resid @ self.pdc_sym_onehot                     # [B,S]
+            ph = r_sym / r_sym.abs().clamp_min(1e-20)
+            h1 = h1 * ph[:, self.sym_of_pdc][:, None, :]
+            x_dd, csi_dd = _mrc(y_pdc, h1)
+            x_pdc = torch.where(use, x_dd, x_pdc)
+            csi_pdc = torch.where(use, csi_dd, csi_pdc)
+        return x_pdc, csi_pdc
+
     def _finish(self, gf, cf, theta, sto_frac, cfo_res, snr_db, h_cells,
-                nv_bin, B):
+                nv_bin, B, selective):
         N, S, ps = self.N, self.S, self.ps
         # fractional-STO derotation once on the grid, per subcarrier
         R_ = gf.shape[1]
@@ -332,6 +418,9 @@ class Rx(torch.nn.Module):
         y_pdc, h_pdc = gf[..., self.pdc_lin], cf[..., self.pdc_locc]
         if self.N_SS == 1:
             x_pdc, csi_pdc = self._combine(y_pdc, h_pdc, "pdc")
+            if self.N_TS == 1 and self.dd_passes:
+                x_pdc, csi_pdc = self._dd_refine(x_pdc, csi_pdc, y_pdc,
+                                                 h_pdc[:, :, 0], selective)
             llr_pdc = demap_llr(x_pdc, csi_pdc, ps.mcs.N_bps, nv_bin)
         else:
             # MMSE, then undo the TX's round-robin (stream s carries serial
@@ -356,18 +445,9 @@ def build_rx(psdef: PacketSizesDef, network_id: int, plcf_type: int,
              n_iter: int = 6, device: torch.device | str = "cuda",
              **options) -> Rx:
     """Aligned RX module for one packet configuration (dectnrp_tpu/phy/rx.py:120),
-    on `device`.
-
-    `options` takes the JAX builder's options (`RX_DEFAULTS`): `genie` at
-    both values, each chestim option only at its default (est_sto and
-    est_cfo may be off with genie, which turns them off anyway); any other
-    value is not ported yet."""
-    genie = bool(options.get("genie", False))
-    for k, v in options.items():
+    on `device`; `options` are the JAX builder's (`RX_DEFAULTS`)."""
+    for k in options:
         if k not in RX_DEFAULTS:
             raise TypeError(f"build_rx: unknown option {k!r}")
-        if k == "genie" or (genie and k in ("est_sto", "est_cfo")):
-            continue
-        if v != RX_DEFAULTS[k]:
-            raise NotImplementedError(f"build_rx: {k}={v!r} is not ported yet")
-    return Rx(psdef, network_id, plcf_type, n_iter, genie).to(device)
+    return Rx(psdef, network_id, plcf_type, n_iter=n_iter,
+              **{**RX_DEFAULTS, **options}).to(device)

@@ -10,9 +10,12 @@ recomputed per peak from O(L) windows; the fine peak and N_eff_TX come from
 an FFT cross-correlation against all STF templates.
 
 This is the JAX module's fused-detection branch (sync.py:234-238) on every
-device, so CPU and card share one code path and differ only in `sm`. Like
-that branch it does not fold an RMS gate into the smoothing (rms_min must be
-<= 0). `est_beta_icfo` is not ported yet (ROADMAP.md).
+device, so CPU and card share one code path and differ only in `sm`. Unlike
+that branch it also serves the RMS window gate (rms_min > 0, which JAX
+routes to its XLA detection, sync.py:176-177): the detection kernel folds
+it into the smoothing, and the peaks' own RMS must pass it too. With
+`est_beta_icfo` the f-domain stage (`build_beta_icfo`, JAX sync.py:319-389)
+reports each peak's bandwidth beta and integer CFO in bins.
 """
 from __future__ import annotations
 
@@ -31,15 +34,15 @@ from .plan import register_tables
 @dataclass(frozen=True)
 class SyncParams:
     """Runtime equivalents of the reference's sync_param.hpp (as
-    dectnrp_tpu.phy.sync.SyncParams; the RMS gate's upper bound is not
-    ported because the gate itself is refused, see Sync)."""
+    dectnrp_tpu.phy.sync.SyncParams). rms gates default off (simulator)."""
     metric_threshold: float = 0.25
     metric_max: float = 1.5
-    rms_min: float = 0.0        # must stay 0: no RMS window gate
+    rms_min: float = 0.0        # 0 disables the RMS window gate
+    rms_max: float = float("inf")
     smooth_left: int = 7        # metric smoothing, x b samples (peak search)
     smooth_right: int = 1
     fine_search_half: int = 16  # x b samples around the coarse peak
-    est_beta_icfo: bool = False
+    est_beta_icfo: bool = False # f-domain beta + integer-CFO stage
 
 
 @lru_cache(maxsize=None)
@@ -67,18 +70,14 @@ class Sync(torch.nn.Module):
 
     max_peaks == 1: fields [B]; max_peaks = K > 1: fields [B, K] ordered by
     descending smoothed metric. Fields: detected, t_fine, t_coarse, cfo
-    (rad/sample), n_eff_tx, metric, rms.
+    (rad/sample), n_eff_tx, metric, rms; with est_beta_icfo also beta and
+    cfo_int (integer CFO in bins of the 64 b FFT).
     """
 
     def __init__(self, u: int, b: int, T: int,
                  neff_candidates: tuple[int, ...] = (1, 2, 4, 8),
                  params: SyncParams = SyncParams(), max_peaks: int = 1):
         super().__init__()
-        if params.rms_min > 0.0:
-            raise AssertionError(
-                "fused detection does not fold the RMS gate into the smoothing")
-        if params.est_beta_icfo:
-            raise NotImplementedError("build_sync: est_beta_icfo is not ported yet")
         self.P = P = 16 * b
         self.n_pat = n_pat = n_stf_patterns(u)
         self.L = L = n_pat * P
@@ -102,6 +101,7 @@ class Sync(torch.nn.Module):
             "Gc": np.conj(np.fft.fft(np.conj(templates), n=nfft, axis=0)),
             "neff": np.asarray(neff_candidates, np.int64)})
         self.nfft = nfft
+        self.beta_icfo = BetaIcfo(u, b) if params.est_beta_icfo else None
 
     def _peak_vals(self, x, t_coarse):
         """metric / C / rms at the K peaks from O(L) windows."""
@@ -117,7 +117,8 @@ class Sync(torch.nn.Module):
     def forward(self, iq: torch.Tensor) -> dict:
         pr, L, P = self.params, self.L, self.P
         sm = detect_sm(iq, P, self.w, self.sl, self.sr, pr.metric_threshold,
-                       pr.metric_max)                             # [B,n_t]
+                       pr.metric_max, rms_min=pr.rms_min,
+                       rms_max=pr.rms_max)                        # [B,n_t]
 
         # coarse peaks: argmax rounds with +-1 STF masking between rounds
         tt = torch.arange(self.n_t, device=iq.device)
@@ -134,6 +135,8 @@ class Sync(torch.nn.Module):
         c_pk, peak_metric, peak_rms = self._peak_vals(iq, t_coarse)
         inst_ok = (peak_metric > pr.metric_threshold) & \
             (peak_metric < pr.metric_max)
+        if pr.rms_min > 0.0:
+            inst_ok &= (peak_rms > pr.rms_min) & (peak_rms < pr.rms_max)
         detected = inst_ok & (sm_pk > pr.metric_threshold)
         cfo = -torch.angle(c_pk) / P                              # rad/sample
 
@@ -161,6 +164,12 @@ class Sync(torch.nn.Module):
                "cfo": cfo.to(torch.float32), "n_eff_tx": n_eff.to(torch.int32),
                "metric": peak_metric.to(torch.float32),
                "rms": peak_rms.to(torch.float32)}
+        if self.beta_icfo is not None:
+            # the FFT window of 64 b samples from the fine peak
+            Nfft = self.beta_icfo.Nfft
+            beta, s = self.beta_icfo(
+                _windows(iq, t_fine.clamp(0, self.T - Nfft), Nfft))
+            out["beta"], out["cfo_int"] = beta.to(torch.int32), s.to(torch.int32)
         if self.max_peaks == 1:
             out = {k: v[..., 0] for k, v in out.items()}
         return out
@@ -173,6 +182,77 @@ def build_sync(u: int, b: int, T: int,
     """Sync module for a [B, N_RX, T] chunk (dectnrp_tpu/phy/sync.py:108),
     on `device`."""
     return Sync(u, b, T, neff_candidates, params, max_peaks).to(device)
+
+
+class BetaIcfo(torch.nn.Module):
+    """f-domain coarse-peak stage: joint beta + integer-CFO estimation
+    (port of dectnrp_tpu/phy/sync.py::build_beta_icfo; the reference
+    declares it, coarse_peak_f_domain.cpp:94-201, and ships it disabled).
+
+    At the b_max rate every beta's STF occupies bins k = 0 (mod 4),
+    4 <= |k| <= 28 beta of the 64 b_max FFT, so one FFT at the STF start
+    gives the bandwidth (how far the comb extends) and the integer CFO (how
+    far it is shifted). est(seg [..., R, 64 b_max]) -> (beta [...], s [...]
+    in bins): per candidate (beta, s) the comb's power above the in-band
+    off-comb mean is scored; s is the argmax over the shifts of the best
+    score, beta the smallest candidate scoring >= 90 % of the best at s.
+    `shifts` must span less than one comb period (4 bins).
+    """
+
+    def __init__(self, u: int, b_max: int,
+                 candidates: tuple[int, ...] = (1, 2, 4, 8, 12, 16),
+                 shifts: tuple[int, ...] = (-1, 0, 1, 2)):
+        super().__init__()
+        self.Nfft = Nfft = 64 * b_max
+        dc = Nfft // 2
+        cands = [c for c in candidates if c <= b_max]
+        assert max(shifts) - min(shifts) < 4, "shift window spans a comb period"
+        sh = np.asarray(shifts, np.int64)
+        # the window spans exactly 4 STF patterns: undo their cover signs,
+        # else the +-1 modulation smears the comb off the = 0 (mod 4) bins
+        tables = {"decov": np.repeat(cover_sequence(u)[:4], 16 * b_max
+                                     ).astype(np.float32),
+                  "cands": np.asarray(cands, np.int64),
+                  "shifts": sh}
+        n_cells, n_off = [], []
+        for i, c in enumerate(cands):
+            cells = dc + np.array([k for k in range(-28 * c, 28 * c + 1, 4)
+                                   if k != 0])
+            tables[f"idx{i}"] = cells[:, None] + sh[None, :]      # [n_cells, n_s]
+            tables[f"lo{i}"] = dc - 28 * c + sh
+            tables[f"hi{i}"] = dc + 28 * c + sh + 1
+            n_cells.append(cells.size)
+            n_off.append(56 * c + 1 - cells.size)
+        self.n_cells, self.n_off = n_cells, n_off
+        register_tables(self, tables)
+
+    def forward(self, seg: torch.Tensor):
+        S = torch.fft.fftshift(torch.fft.fft(seg * self.decov, dim=-1), dim=-1)
+        Pw = (S.abs() ** 2).sum(-2)                               # [..., Nfft]
+        cs = torch.cat([torch.zeros_like(Pw[..., :1]), torch.cumsum(Pw, -1)], -1)
+        X = []
+        for i, (nc, no) in enumerate(zip(self.n_cells, self.n_off)):
+            comb = Pw[..., getattr(self, f"idx{i}")].sum(-2)      # [..., n_s]
+            band = cs[..., getattr(self, f"hi{i}")] - cs[..., getattr(self, f"lo{i}")]
+            mu_off = (band - comb) / no
+            X.append(comb - nc * mu_off)
+        X = torch.stack(X, -2)                                    # [..., n_c, n_s]
+        s_idx = X.amax(-2).argmax(-1)                             # [...]
+        col = torch.gather(X, -1, s_idx[..., None, None].expand(
+            *X.shape[:-1], 1))[..., 0]                            # [..., n_c]
+        good = col >= 0.9 * col.amax(-1, keepdim=True)
+        # the smallest candidate on the plateau
+        b_idx = good.to(torch.uint8).argmax(-1)
+        return self.cands[b_idx], self.shifts[s_idx]
+
+
+def build_beta_icfo(u: int, b_max: int,
+                    candidates: tuple[int, ...] = (1, 2, 4, 8, 12, 16),
+                    shifts: tuple[int, ...] = (-1, 0, 1, 2),
+                    device: torch.device | str = "cuda") -> BetaIcfo:
+    """beta + integer-CFO estimator (dectnrp_tpu/phy/sync.py:319), on
+    `device`."""
+    return BetaIcfo(u, b_max, candidates, shifts).to(device)
 
 
 class RxStream(torch.nn.Module):

@@ -4,14 +4,16 @@ Reference: lib/src/phy/tx/tx.cpp:165-314. Bits -> FEC -> QAM -> one grid
 scatter -> beamforming einsum -> batched IFFT + CP -> STF assembly + cover
 sequence -> GI, at the native DECT rate.
 
-The port covers a single transmit stream, N_TS = 2/4/8 transmit streams
-by Alamouti transmit diversity (JAX tx.py:26-42, 108-116), and N_SS > 1
-spatial multiplexing (the PDC's serial symbols round-robin onto the N_SS =
-N_TS streams, JAX tx.py:100-103; the PCC stays Alamouti over N_TS), mapped
-onto the N_TX antennas through the first beamforming matrix W of the
-codebook; any redundancy version rv (the PDC rate matching's start, for
-HARQ retransmissions) and no TX windowing. Other codebook entries and
-`window_fraction` raise NotImplementedError (queued in ROADMAP.md).
+Every option of the JAX builder: a single transmit stream, N_TS = 2/4/8
+transmit streams by Alamouti transmit diversity (JAX tx.py:26-42, 108-116),
+and N_SS > 1 spatial multiplexing (the PDC's serial symbols round-robin
+onto the N_SS = N_TS streams, JAX tx.py:100-103; the PCC stays Alamouti
+over N_TS), mapped onto the N_TX antennas through beamforming matrix W
+`codebook_idx` of the codebook (an index beyond the codebook raises
+ValueError, as JAX's `get_W` does); any redundancy version rv (the PDC rate
+matching's start, for HARQ retransmissions); and raised-cosine TX windowing
+over `window_fraction` of the CP (JAX tx.py:48-76, 133-152; reference
+tx.cpp:882-911).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from ..sections.part3.beamforming import get_W
 from ..sections.part3.packet_sizes import PacketSizesDef
 from ..sections.part3.stf import cover_sequence, n_stf_patterns
 from .fec.chain import PdcPlan, pcc_encode, pdc_encode
+from .filters import raised_cosine_window
 from .modulation import map_bits
 from .packet_config import AlamoutiLuts, get_packet_luts
 from .plan import register_tables
@@ -43,11 +46,6 @@ class Tx(torch.nn.Module):
         super().__init__()
         luts = get_packet_luts(psdef)
         ps = luts.ps
-        if window_fraction > 0.0:
-            raise NotImplementedError("build_tx: TX windowing is not ported yet")
-        if codebook_idx:
-            raise NotImplementedError("build_tx: only codebook entry 0 is "
-                                      "ported yet")
         self.ps, self.network_id, self.plcf_type = ps, network_id, plcf_type
         self.rv = rv
         q = ps.numerology
@@ -56,12 +54,29 @@ class Tx(torch.nn.Module):
         self.N_SS = ps.tm_mode.N_SS
         self.plan = PdcPlan.get(ps.N_TB_bits, ps.G, ps.mcs.N_bps, psdef.Z)
         self.scale = luts.tx_scale
-        W = get_W(self.N_TS, self.N_TX, 0).astype(np.complex64)    # [N_TX, N_TS]
+        W = get_W(self.N_TS, self.N_TX, codebook_idx).astype(np.complex64)
+        stf, pattern, cover_last = self._stf(W, luts.stf_grid, psdef.u, psdef.b)
         tables = {
             "drs_idx": luts.drs_flat_idx, "drs_val": luts.drs_values,
             "pcc_idx": luts.pcc_flat_idx.ravel(),
-            "pdc_idx": luts.pdc_flat_idx.ravel(), "W": W,
-            "stf": self._stf(W, luts.stf_grid, psdef.u, psdef.b)}
+            "pdc_idx": luts.pdc_flat_idx.ravel(), "W": W, "stf": stf}
+        self.n_w = 0
+        if window_fraction > 0.0:
+            # raised-cosine rise on each symbol's CP head, overlap-added with
+            # the previous symbol's cyclic tail (body start x falling edge);
+            # symbol 0's predecessor is the STF, which continues as
+            # cover[-1] * pattern. Only CP heads and the GI start are shaped.
+            self.n_w = n_w = max(2, int(round(self.cp * window_fraction)))
+            assert n_w <= self.cp and n_w <= 16 * psdef.b
+            rc = raised_cosine_window(0, n_w)        # [2 n_w]: rise, fall
+            w_rise = torch.as_tensor(rc[:n_w].astype(np.float32))
+            w_fall = torch.as_tensor(rc[n_w:].astype(np.float32))
+            stf = torch.as_tensor(stf)
+            stf[..., :n_w] *= w_rise
+            tables.update(
+                stf=stf.numpy(), w_rise=w_rise.numpy(), w_fall=w_fall.numpy(),
+                stf_tail=(pattern[:, :n_w] * cover_last * w_fall).to(
+                    torch.complex64).numpy())
         if self.N_TS > 1:
             tables.update(_alamouti_tables(luts.pcc_alamouti, "pcc"))
         if luts.pdc_alamouti is not None:
@@ -69,8 +84,9 @@ class Tx(torch.nn.Module):
         register_tables(self, tables)
 
     def _stf(self, W, stf_grid, u, b):
-        """STF [N_TX, n_pat*16b]: base pattern from its IFFT, n_pat
-        repetitions, cover sequence (stream 0 carries the STF)."""
+        """(STF [N_TX, n_pat*16b], its base pattern [N_TX, 16b], the cover
+        sequence's last sign): the pattern from its IFFT, n_pat repetitions,
+        cover sequence (stream 0 carries the STF)."""
         stf_bf = torch.einsum("at,n->an", torch.as_tensor(W[:, :1]),
                               torch.as_tensor(stf_grid))
         body = torch.fft.ifft(torch.fft.ifftshift(stf_bf, dim=-1), dim=-1) * self.scale
@@ -78,7 +94,8 @@ class Tx(torch.nn.Module):
         n_pat = n_stf_patterns(u)
         cover = torch.as_tensor(cover_sequence(u).astype(np.float32))
         reps = pattern[:, None, :].expand(-1, n_pat, -1) * cover[None, :, None]
-        return reps.reshape(self.N_TX, -1).to(torch.complex64).numpy()
+        return (reps.reshape(self.N_TX, -1).to(torch.complex64).numpy(),
+                pattern, cover[-1])
 
     def _spread(self, x, name):
         """Cells [B, n] -> transmit streams [B, N_TS, n] (Alamouti for N_TS > 1):
@@ -115,10 +132,18 @@ class Tx(torch.nn.Module):
         df = grid_tx[:, :, 1:1 + ps.N_DF_symb]                    # [B,N_TX,N_DF,N]
         body = torch.fft.ifft(torch.fft.ifftshift(df, dim=-1), dim=-1) * self.scale
         df_t = torch.cat([body[..., N - cp:], body], -1)          # +CP
-        df_t = df_t.reshape(B, self.N_TX, ps.N_DF_symb * (N + cp))
-        stf_t = self.stf[None].expand(B, -1, -1)
         gi = torch.zeros((B, self.N_TX, ps.N_samples_GI), dtype=torch.complex64,
                          device=plcf_bits.device)
+        if self.n_w:
+            n_w = self.n_w
+            tails = body[..., :n_w] * self.w_fall                 # [B,NTX,NDF,nw]
+            prev = torch.cat([self.stf_tail[None, :, None].expand(B, -1, 1, -1),
+                              tails[..., :-1, :]], 2)
+            heads = df_t[..., :n_w] * self.w_rise + prev
+            df_t = torch.cat([heads, df_t[..., n_w:]], -1)
+            gi[..., :n_w] = tails[:, :, -1]                       # last tail
+        df_t = df_t.reshape(B, self.N_TX, ps.N_DF_symb * (N + cp))
+        stf_t = self.stf[None].expand(B, -1, -1)
         return torch.cat([stf_t, df_t.to(torch.complex64), gi], -1)
 
 

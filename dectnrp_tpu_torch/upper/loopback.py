@@ -16,8 +16,9 @@ JAX package's own draws instead.
 
 Outputs match tfw_loopback_snr_t::save_all_results_to_file: per MCS a JSON
 record {snr_vec, nof_experiment_per_snr, PER_pcc_crc, PER_pcc_crc_and_plcf,
-PER_pdc_crc, snr_min/max_vec}. The MMIE round trip (tfw_loopback_mmie) needs
-the MAC PDU codecs and is not ported yet.
+PER_pdc_crc, snr_min/max_vec}. `loopback_mmie_roundtrip`
+(tfw_loopback_mmie) sends MMIEs in a MAC PDU over the AWGN loopback and
+decodes them back.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from ..phy.tx import build_tx
 from ..sections.part3.packet_sizes import PacketSizesDef, get_packet_sizes
 from ..sections.part3.phyres import k_b_OCC
 from ..sections.part4.identity import Identity
+from ..sections.part4.mac_pdu_decoder import build_mac_pdu, decode_mac_pdu
 from ..sections.part4.plcf import Plcf10, bits_to_bytes, bytes_to_bits
 from ..simulation.channels import (apply_awgn, apply_doubly, apply_doubly_genie,
                                    draw_doubly, draw_noise, noise_var_for_snr,
@@ -345,3 +347,62 @@ class LoopbackRatioExperiment:
                               amplitude_scale=r, quantize_bits=self.quantize_bits,
                               device=self.device)
                 for i, r in enumerate(self.ratios)}
+
+
+def loopback_mmie_roundtrip(mmies, identity: Identity,
+                            psdef: PacketSizesDef | None = None,
+                            snr_db: float = 20.0, seed: int = 0,
+                            device: torch.device | str = "cuda",
+                            noise: torch.Tensor | None = None):
+    """MMIE codec round trip over the air (reference tfw_loopback_mmie.cpp,
+    port of dectnrp_tpu/upper/loopback.py:304): build a MAC PDU from
+    `mmies`, TX through AWGN loopback at `snr_db`, decode the PDU. Without
+    `psdef`, the shortest (1, 1, 0, PacketLength, 0, 2, 6144) whose TB holds
+    the PDU. `noise` (unit variance, complex64 [1, N_TX, n]) defaults to a
+    draw from a torch.Generator seeded with `seed` on `device`. Returns the
+    list of decoded MMIEs (asserting CRC pass)."""
+    from ..sections.part4.mac_pdu import (BeaconHeader, MacHeaderKind,
+                                          MacHeaderType)
+
+    mht = MacHeaderType(mac_header_type=MacHeaderKind.BEACON)
+    ch = BeaconHeader(network_id_3_lsb=identity.network_id & 0xFFFFFF,
+                      transmitter_address=identity.long_rdid)
+    need = 1 + ch.SIZE + sum(m.packed_size_mmh_sdu() for m in mmies)
+
+    if psdef is None:
+        for plen in range(1, 17):
+            psdef = PacketSizesDef(1, 1, 0, plen, 0, 2, 6144)
+            ps = get_packet_sizes(psdef)
+            if ps is not None and ps.N_TB_bits // 8 >= need:
+                break
+    ps = get_packet_sizes(psdef)
+    assert ps.N_TB_bits // 8 >= need, "MAC PDU does not fit TB"
+
+    pdu = build_mac_pdu(mht, ch, mmies, tb_size_bytes=ps.N_TB_bits // 8)
+    tb_bits = np.unpackbits(np.frombuffer(pdu, np.uint8))[:ps.N_TB_bits]
+
+    nid = identity.network_id
+    tx = build_tx(psdef, nid, 1, device=device)
+    rx = build_rx(psdef, nid, 1, device=device)
+    dev = tx.W.device
+    plcf = Plcf10(packet_length_type=psdef.PacketLengthType,
+                  packet_length=psdef.PacketLength,
+                  short_network_id=identity.short_network_id,
+                  transmitter_identity=identity.short_rdid,
+                  df_mcs=psdef.mcs_index)
+    plcf_b = torch.as_tensor(bytes_to_bits(plcf.pack(), 40)[None, :].astype(np.uint8),
+                             device=dev)
+    fl = torch.zeros((1,), dtype=torch.bool, device=dev)
+
+    iq = tx(plcf_b, torch.as_tensor(tb_bits[None, :].astype(np.uint8), device=dev),
+            fl, fl)
+    nv = noise_var_for_snr((iq.abs() ** 2).mean(), snr_db)
+    if noise is None:
+        noise = draw_noise(torch.Generator(device=dev).manual_seed(seed),
+                           iq.shape, dev)
+    out = rx(apply_awgn(iq, nv, noise.to(dev)), nv)
+    assert bool(out["tb_ok"][0]), "loopback decode failed"
+    rx_pdu = np.packbits(out["tb"][0].cpu().numpy().astype(np.uint8)).tobytes()
+    dec = decode_mac_pdu(rx_pdu)
+    assert not dec.aborted
+    return dec.mmies

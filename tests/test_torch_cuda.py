@@ -225,7 +225,7 @@ SYNC_SHAPES = [(1, 1, 1, 3, 300 * 16 + 7, None, 5),
 
 def _sync_launch(x, P, w, sl, sr, thr, mmax, span):
     """sm of the kernel through its C entry, each block walking `span`
-    rows (the wrapper always takes `default_span`)."""
+    rows (the wrapper always takes `default_span`), no RMS gate."""
     from dectnrp_tpu_torch import kernels
     from dectnrp_tpu_torch.phy.ops import sync_detect
 
@@ -234,7 +234,7 @@ def _sync_launch(x, P, w, sl, sr, thr, mmax, span):
     sm = torch.empty((B, pl.n_t), device=x.device)
     kernels.check(kernels.load().sync_detect_sm(
         torch.view_as_real(x).data_ptr(), w.data_ptr(), sm.data_ptr(), B, R, T,
-        P, w.numel() + 1, sl, sr, thr, mmax, pl.RC, span,
+        P, w.numel() + 1, sl, sr, thr, mmax, 0.0, 0.0, pl.RC, span,
         kernels.stream_ptr(x.device)), "sync_detect_sm")
     return sm
 
@@ -278,6 +278,73 @@ def test_sync_kernel_matches_plain(dev, u, b, R, B, T, span, seg):
     assert got[0].max() > thr
 
 
+def _sync_input(dev, u, b, R, B, T, seg, seed):
+    """x [B, R, T] of unit-power noise with a strongly periodic,
+    cover-weighted segment in stream 0 at row `seg` (the gate opens), and
+    the cover weights w."""
+    from dectnrp_tpu_torch.sections.part3.stf import cover_sequence
+
+    P = 16 * b
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, R, T), dtype=torch.complex64, generator=g, device=dev)
+    cov = torch.as_tensor(np.resize(cover_sequence(u), 12).astype(np.float32),
+                          device=dev)
+    x[0, :, seg * P:(seg + 12) * P] = (x[0, :, :P].repeat(1, 12)
+                                       * cov.repeat_interleave(P))
+    w = torch.as_tensor((cover_sequence(u)[:-1] * cover_sequence(u)[1:]
+                         ).astype(np.float32), device=dev)
+    return x, w
+
+
+# the shapes the phases of chip_smoke.py time B2 at (flagship, wall, u8b16,
+# the runtime's chunk), and small streams at b = 1 and 2 antennas
+SYNC_GATE_SHAPES = [(1, 16, 1, 64, 192512), (1, 8, 4, 16, 77310),
+                    (8, 16, 1, 128, 192512), (1, 1, 1, 1, 2048 + 4 * 112),
+                    (1, 1, 2, 3, 300 * 16 + 7)]
+
+
+@pytest.mark.parametrize("u,b,R,B,T", SYNC_GATE_SHAPES)
+def test_sync_kernel_rms_gate(dev, u, b, R, B, T):
+    """The RMS window gate folded into the kernel (as the P2 interval of
+    `rms_gate_bounds`; the twins compute the RMS): with rms_min > 0 (once
+    between the noise's and the segment's RMS, once with rms_max below the
+    segment's) the kernel equals its tiled twin and its plain twin off gate
+    ties (metric and RMS within 1e-3), and the second shuts the segment
+    out; at rms_min = 0
+    the kernel is bit for bit what it is with no gate given, and bit for
+    bit its tiled twin."""
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+
+    P = 16 * b
+    x, w = _sync_input(dev, u, b, R, B, T, 5, 3 * b + R)
+    x[:, :, 3 * P:(3 + 40) * P] *= 3.0    # a louder span the gate keeps
+    sl, sr, thr, mmax = 7 * b, b, 0.25, 1.5
+    args = (x, P, w, sl, sr, thr, mmax)
+    n_pat = w.numel() + 1
+    span = sync_detect.default_span(x, P, n_pat, sl, sr)
+    metric, _, P2s = sync_detect.detect_metric_plain(x, P, w)
+    rms = sync_detect.detect_rms(P2s, n_pat * P * R)
+    ungated = sync_detect.detect_sm(*args)
+    n0 = sync_detect.launches
+    off = sync_detect.detect_sm(*args, rms_min=0.0, rms_max=1e-9)
+    assert sync_detect.launches == n0 + 1
+    assert torch.equal(off, ungated)
+    assert torch.equal(off, sync_detect.detect_sm_tiled(*args, span))
+    r_lo, r_hi = float(rms.median()), float(rms.max())
+    for rmin, rmax in ((1.5 * r_lo, float("inf")), (0.5 * r_lo, 1.5 * r_lo)):
+        gate = {"rms_min": rmin, "rms_max": rmax}
+        got = sync_detect.detect_sm(*args, **gate)
+        tiled = sync_detect.detect_sm_tiled(*args, span, **gate)
+        want = sync_detect.detect_sm_plain(*args, **gate)
+        ok = sync_detect.gate_tie_mask(metric, thr, mmax, sl, sr, 1e-3, rms,
+                                       rmin, rmax)
+        assert ok.float().mean() > 0.9
+        torch.testing.assert_close(got[ok], tiled[ok], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[ok], want[ok], rtol=2e-3, atol=2e-4)
+    # the second gate shuts the louder span with the periodic segment out
+    assert r_hi > 1.5 * r_lo and got[0].max() <= thr < ungated[0].max()
+
+
 def test_sync_wrapper_rejects_bad_input(dev):
     """Shapes the tiling does not serve raise with the reason in the
     wrapper, and the C entry refuses them too: 16 antennas at b = 16 in one
@@ -294,7 +361,7 @@ def test_sync_wrapper_rejects_bad_input(dev):
     for R, RC in ((16, 16), (1, 2)):
         assert kernels.load().sync_detect_sm(
             torch.view_as_real(x).data_ptr(), w.data_ptr(), sm.data_ptr(), 1, R,
-            20 * 256, 256, 7, 112, 16, 0.25, 1.5, RC, 8,
+            20 * 256, 256, 7, 112, 16, 0.25, 1.5, 0.0, 0.0, RC, 8,
             kernels.stream_ptr(x.device)) != 0
     y = torch.zeros((1, 1, 20 * 48), dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError, match="16 b"):

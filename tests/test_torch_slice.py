@@ -224,7 +224,7 @@ def test_aligned_rx_matches_jax(tm):
     ("tx", {"codebook_idx": 3}),
     ("tx", {"codebook_idx": 1, "rv": 2}),
     ("tx", {"window_fraction": 0.1}),
-    # genie and N_SS > 1 are ported; the options beside them stay refused
+    # genie and N_SS > 1 beside the chestim and TX options
     ("rx", {"genie": True, "dd_passes": 1}),
     ("rx", {"genie": True, "freq_kind": "linear"}),
     ("rx", {"tm": 2, "chestim_mode": "lr_f"}),
@@ -232,16 +232,67 @@ def test_aligned_rx_matches_jax(tm):
     ("tx", {"tm": 2, "window_fraction": 0.1}),
 ])
 def test_unported_options_raise(builder, kw):
-    """Options and modes the JAX builders take beyond the port's are refused,
-    not silently run at the port's defaults."""
-    from dectnrp_tpu_torch.phy.rx import build_rx
-    from dectnrp_tpu_torch.phy.tx import build_tx
+    """Every option and mode of the JAX builders, once refused by the port,
+    decides as JAX's on the same inputs: TX IQ within rtol 1e-5 / atol 1e-6;
+    RX plcf1 / plcf*_ok / tb_ok equal, tb equal where the CRC holds,
+    snr_db within 1e-3. A codebook index beyond the codebook raises
+    ValueError in both packages (tm 0 has one entry)."""
+    from dectnrp_tpu.phy.rx import build_rx
+    from dectnrp_tpu.phy.tx import build_tx
+    from dectnrp_tpu_torch.phy.rx import build_rx as t_build_rx
+    from dectnrp_tpu_torch.phy.tx import build_tx as t_build_tx
 
-    build = build_rx if builder == "rx" else build_tx
     kw = dict(kw)
     tm = kw.pop("tm", 0)
-    with pytest.raises(NotImplementedError):
-        build(TPacketSizesDef(1, 2, 0, 2, tm, 3, 6144), NID, 1, device="cpu", **kw)
+    args = (1, 2, 0, 2, tm, 3, 6144)
+    psdef, ps = PacketSizesDef(*args), get_packet_sizes(PacketSizesDef(*args))
+    B = 2
+    rng = np.random.default_rng(60 + tm + len(str(kw)))
+    plcf = rng.integers(0, 2, (B, 40)).astype(np.uint8)
+    tb = rng.integers(0, 2, (B, ps.N_TB_bits)).astype(np.uint8)
+    fl = np.zeros((B,), bool)
+    jin = (jnp.asarray(plcf), jnp.asarray(tb), jnp.asarray(fl), jnp.asarray(fl))
+    tin = (torch.as_tensor(plcf), torch.as_tensor(tb), torch.as_tensor(fl),
+           torch.as_tensor(fl))
+    if builder == "tx":
+        if tm == 0 and kw.get("codebook_idx", 0) > 0:
+            with pytest.raises(ValueError, match="codebook index"):
+                build_tx(psdef, NID, 1, **kw)
+            with pytest.raises(ValueError, match="codebook index"):
+                t_build_tx(TPacketSizesDef(*args), NID, 1, device="cpu", **kw)
+            return
+        iq_j = np.asarray(build_tx(psdef, NID, 1, **kw)(*jin))
+        iq_t = t_build_tx(TPacketSizesDef(*args), NID, 1, device="cpu",
+                          **kw)(*tin).numpy()
+        np.testing.assert_allclose(iq_t, iq_j, rtol=1e-5, atol=1e-6)
+        assert iq_t.shape == (B, ps.tm_mode.N_TX, ps.N_samples_packet)
+        return
+    iq = np.asarray(build_tx(psdef, NID, 1)(*jin))
+    n_tx, n_rx = iq.shape[1], ps.tm_mode.N_SS
+    H = ((rng.standard_normal((B, n_rx, n_tx)) + 1j * rng.standard_normal(
+        (B, n_rx, n_tx))) / np.sqrt(2)).astype(np.complex64)
+    nv = np.float32(10.0 ** (-22.0 / 10.0))
+    y = np.einsum("brt,btn->brn", H, iq)
+    y = (y + np.sqrt(nv / 2) * (rng.standard_normal(y.shape)
+                                + 1j * rng.standard_normal(y.shape)))
+    y = (y * np.exp(1j * 1e-4 * np.arange(y.shape[-1]))).astype(np.complex64)
+    extra = ()
+    if kw.get("genie"):
+        q = ps.numerology
+        extra = (np.broadcast_to(H[:, :, :, None, None], (
+            B, n_rx, n_tx, ps.N_PACKET_symb, q.N_b_OCC)).copy(),)
+    o_j = build_rx(psdef, NID, 1, **kw)(jnp.asarray(y), jnp.float32(nv),
+                                       *map(jnp.asarray, extra))
+    o_t = t_build_rx(TPacketSizesDef(*args), NID, 1, device="cpu", **kw)(
+        torch.as_tensor(y), torch.tensor(nv), *map(torch.as_tensor, extra))
+    for key in ("plcf1", "plcf1_ok", "plcf2_ok", "tb_ok"):
+        np.testing.assert_array_equal(o_t[key].numpy(), np.asarray(o_j[key]),
+                                      err_msg=key)
+    ok = o_t["tb_ok"].numpy()
+    np.testing.assert_array_equal(o_t["tb"].numpy()[ok], np.asarray(o_j["tb"])[ok])
+    assert ok.any()
+    np.testing.assert_allclose(o_t["snr_db"].numpy(), np.asarray(o_j["snr_db"]),
+                               atol=1e-3)
 
 
 @pytest.mark.parametrize("option", ["tx_tm2", "rx_tm2", "rx_genie"])

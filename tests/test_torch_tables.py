@@ -49,7 +49,9 @@ COPIES = sorted(f"sections/part3/{p.name}" for p in
     # its build goes to the package's _build/, tests/test_torch_native_rt.py)
     "application/__init__.py", "application/queue.py",
     "application/socket_app.py", "application/vnic.py", "apps/rtt.py",
-    "apps/sync_gen.py", "common/tcp_scope.py", "radio/hw_iq.py"]
+    "apps/sync_gen.py", "common/tcp_scope.py", "radio/hw_iq.py",
+    # the pure-Python leftovers: DLC / CVG codecs, clocks, logging
+    "sections/part5.py", "common/watch.py", "common/logging.py"]
 # the resampler's ratios: get_resampler_fraction's set and the inverses
 RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),
           (9, 10), (27, 40), (9, 20), (27, 80), (1, 2)]
@@ -335,6 +337,11 @@ def test_port_runs_without_jax():
         _, recs = dectnrp_main.run(["configurations/rtt_simulator", "--ticks",
                                     "12", "--device", "cpu", "--datagrams", "1"])
         assert recs[0]["firmware"] == {"tx": 1, "rx": 1}, recs
+        # the builder options' modules and the pure-Python leftovers
+        from dectnrp_tpu_torch import options_check  # noqa: F401
+        from dectnrp_tpu_torch.common import logging, watch  # noqa: F401
+        from dectnrp_tpu_torch.sections import part5  # noqa: F401
+        from dectnrp_tpu_torch.sections.part3 import duration_lut  # noqa: F401
         assert "jax" not in sys.modules, "the port loaded jax"
         assert "dectnrp_tpu" not in sys.modules, "the port loaded the JAX package"
         print("JAX_FREE_OK")
