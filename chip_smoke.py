@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Seven main paths, each driven once through its entry points with every
+Eight main paths, each driven once through its entry points with every
 kernel's launch count set to 0 just before it (and before each part of
-phy_options) and read just after:
+phy_options and multichip) and read just after:
   flagship  make_flagship_step: u=1 b=16 SISO MCS4, B = 64 streams of
             T = 192,512 samples, 2 packets each, 15 dB, no resampler;
   wall      make_wall_step: u=1 b=8, N_TX = 4 Alamouti transmit diversity,
@@ -53,6 +53,16 @@ phy_options) and read just after:
             192,512] streams, every chestim option through build_rx_stream
             (16 fading packets, 2 of them also on the CPU: cut in depth),
             the MMIE round trip.
+  multichip  the multi-device code (common/mesh.py, phy/sync_sharded.py,
+            vspace.tick_sharded, multichip.dryrun_multichip) on ONE card
+            listed 8 times in the mesh (one process, every shard on
+            cuda:0; the count of distinct cards, 1, is printed): the
+            time-sharded sync at the flagship's numerology, u = 1, b = 16,
+            [1, 2,097,152] (75.9 ms of 27.648 Ms/s radio time) in 64 chunks
+            of 32,768 over 8 shards, and at b = 1 in 64 chunks of 8,192
+            (SCALING_r04's chunk); the node-sharded tick at 8 nodes x 4
+            antennas x spp 2,048 over 4 shards; the dry run on 4 nodes x 2
+            dp (its own sizes, not cut).
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
@@ -161,6 +171,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
      channel recorded, and on 2 fading streams the card deciding as the
      CPU; (e) loopback_mmie_roundtrip: the three MMIEs back. B1 in (a),
      (b), (d), (e); B3 and B4 never;
+  6g. the multichip path (phase_multichip): (a) the sharded sync finds
+     exactly the four packets sent (mid-shard, straddling a chunk
+     boundary, straddling the shard boundary chunk 7 -> 8, in the last
+     shard; +-2 samples), its report is bit for bit the dense search (all
+     64 windows in one Sync call on the card, masked the same way) and
+     equal to a CPU run of the port (detected; t_global, n_eff_tx where
+     detected; cfo within 1e-5), B2 exactly 8 launches (one a shard),
+     at b = 16 (threshold 0.25) and at b = 1 (threshold 0.35, its hits
+     at 0.25 recorded); (b) tick_sharded equals the dense awgn tick on the
+     same draws within 1e-5, no kernel; (c) dryrun_multichip: every phase-1
+     TB and PLCF, every phase-2 packet found (+-2) and decoded (false
+     alarms recorded), B1 in both phases, B2 8 in phase 2, B3 and B4
+     never;
   7. times with CUDA events / synchronized host clocks: each step's median
      over 5 steps, its realtime multiple B*T / step time / radio rate,
      per-stage times, and each kernel next to its plain twin, its bound on
@@ -212,6 +235,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      to its plain twin off gate ties and to its tiled twin, each timed by
      graph replay in turns (off, on, on, off) beside its plain twin and
      bound;
+  7g. the kernels on the inputs the multichip path handed them: B2 on a
+     shard's windows at b = 16 [8, 1, 39,936] and b = 1 [8, 1, 8,640],
+     held to its plain twin off gate ties and to its tiled twin, timed by
+     graph replay beside its plain twin and bound; B1 at every (K, rows)
+     the dry run decoded (one window), bit for bit its plain twin; the
+     b = 16 sharded search's host ms at 1, 2, 4 and 8 shards of the card
+     beside the dense single call (recorded, not gated: on one card a
+     split adds host work and no speed);
   8. torch.profiler (device activity only) over one flagship and one wall
      step, one loopback point of `sync` and of `mimo_fading` (MCS 2 at
      the committed threshold, 500 packets) and one runtime exchange at each
@@ -1974,6 +2005,255 @@ def phase_options_kernels(dev, report, catch, syn):
     return out
 
 
+MC_SHARDS = 8
+# (label, u, b, chunk, n_chunks, psdef, offsets as (chunk, sample in it),
+# metric threshold): mid-shard, straddling a chunk boundary, straddling the
+# shard boundary chunk 7 -> 8, within the last shard. b = 16 is the
+# flagship's numerology (75.9 ms of 27.648 Ms/s radio time); b = 1 at chunk
+# 8,192 is the SCALING_r04 chunk (tests/test_sync_sharded.py:100). At b = 1
+# the 112-sample STF lets noise graze the default 0.25 gate about once in
+# 50,000 samples (the same in the sharded and the dense search, and in the
+# JAX package): the b = 1 stream is searched at 0.35, as
+# tests/test_sync_sharded.py's noise case is, and its hits at 0.25 recorded
+MC_SYNC = (("b16", 1, 16, 32768, 64, (1, 16, 1, 4, 0, 4, 6144),
+            ((3, 4000), (10, -1000), (8, -900), (60, 5000)), 0.25),
+           ("b1", 1, 1, 8192, 64, (1, 1, 0, 2, 0, 2, 6144),
+            ((3, 3000), (10, -50), (8, -60), (60, 1234)), 0.35))
+
+
+def mc_stream(psdef, offs, T, gen, dev, seed):
+    """[1, T] on the card: packets of psdef (TB and PLCF bits from numpy
+    `seed`) at offs, AWGN at 15 dB (multichip.make_stream)."""
+    from dectnrp_tpu_torch.multichip import make_stream
+    from dectnrp_tpu_torch.sections.part3.packet_sizes import (PacketSizesDef,
+                                                               get_packet_sizes)
+
+    psdef = PacketSizesDef(*psdef)
+    rng = np.random.default_rng(seed)
+    plcf = rng.integers(0, 2, (len(offs), 40)).astype(np.uint8)
+    tb = rng.integers(0, 2, (len(offs), get_packet_sizes(psdef).N_TB_bits)
+                      ).astype(np.uint8)
+    noise = torch.randn((1, T), dtype=torch.complex64, generator=gen, device=dev)
+    return make_stream(plcf, tb, offs, T, noise, psdef)
+
+
+def mc_sync_case(case, dev, gen, seed):
+    """(a): one sharded search over MC_SHARDS shards of one card, counted;
+    bit for bit the dense search (every window in one Sync call on the
+    card, masked the same way); decisions equal to a CPU run of the port
+    (cfo within 1e-5 where detected); dedup_reports finds exactly the
+    offsets (+-2). Returns (its record, launches, the module, the stream)."""
+    from dectnrp_tpu_torch.common.mesh import Mesh
+    from dectnrp_tpu_torch.phy.sync import SyncParams
+    from dectnrp_tpu_torch.phy.sync_sharded import (build_sync_sharded,
+                                                    dedup_reports, sync_dense)
+
+    label, u, b, chunk, n_chunks, psdef, rel, thr = case
+    T = chunk * n_chunks
+    offs = [c * chunk + s for c, s in rel]
+    y = mc_stream(psdef, offs, T, gen, dev, seed)
+    mesh = Mesh(np.array([dev] * MC_SHARDS, dtype=object), ("t",))
+    pr = SyncParams(metric_threshold=thr)
+    sh = build_sync_sharded(u, b, chunk, n_chunks, mesh, params=pr)
+    torch.cuda.synchronize()
+    zero_counts()
+    secs, rep = host_ms(lambda: sh(y))
+    d = counts()
+    require(d["sync"] == MC_SHARDS and d["bcjr"] == d["bcjr_bf16"]
+            == d["polyphase"] == 0,
+            f"multichip (a) {label}: kernels not launched as expected ({d}; "
+            f"sync {MC_SHARDS}, one a shard, nothing else)")
+    dense = sync_dense(sh.syncs[dev], y, chunk, n_chunks, sh.overlap)
+    for k in rep:
+        require(torch.equal(rep[k], dense[k]),
+                f"multichip (a) {label}: sharded {k} differs from the dense "
+                f"search ({(rep[k] != dense[k]).sum().item()} of {n_chunks})")
+    cpu = build_sync_sharded(u, b, chunk, n_chunks, Mesh(
+        np.array(["cpu"] * MC_SHARDS, dtype=object), ("t",)), params=pr)(y.cpu())
+    rc = {k: v.cpu() for k, v in rep.items()}
+    det = cpu["detected"]
+    cfo_err = (rc["cfo"][det] - cpu["cfo"][det]).abs().max().item()
+    require(torch.equal(rc["detected"], det)
+            and torch.equal(rc["t_global"][det], cpu["t_global"][det])
+            and torch.equal(rc["n_eff_tx"][det], cpu["n_eff_tx"][det])
+            and cfo_err <= 1e-5,
+            f"multichip (a) {label}: card and CPU reports differ (cfo max "
+            f"|err| {cfo_err})")
+    found = sorted(h["t_global"] for h in dedup_reports(rc, u, b))
+    require(len(found) == len(offs)
+            and all(abs(f - o) <= 2 for f, o in zip(found, sorted(offs))),
+            f"multichip (a) {label}: found {found}, sent {sorted(offs)}")
+    at_default = None
+    if thr != SyncParams().metric_threshold:
+        rep0 = build_sync_sharded(u, b, chunk, n_chunks, mesh)(y)
+        at_default = sorted(h["t_global"] for h in dedup_reports(
+            {k: v.cpu() for k, v in rep0.items()}, u, b))
+    return ({"shape": [1, T], "chunk": chunk, "n_chunks": n_chunks,
+             "metric_threshold": thr, "found_at_default_threshold": at_default,
+             "shards": MC_SHARDS, "window": [n_chunks // MC_SHARDS, 1,
+                                             chunk + sh.overlap],
+             "offsets": sorted(offs), "found": found, "sharded_ms": secs,
+             "cfo_max_abs_err_cpu": cfo_err,
+             "detected_chunks": int(det.sum())}, d, sh, y)
+
+
+def phase_multichip(dev, card, report):
+    """6g, the multichip path on one card listed MC_SHARDS times: (a) the
+    time-sharded sync at b = 16 and b = 1 (mc_sync_case); (b)
+    tick_sharded at N = 8 nodes, A = 4, spp 2,048 over 4 shards equal to
+    the dense awgn tick on the same draws within 1e-5, no kernel; (c)
+    multichip.dryrun_multichip on the 8-entry mesh (4 nodes x 2 dp): every
+    phase-1 TB and PLCF, all three phase-2 packets found and decoded, B1
+    in both phases, B2 once a shard in phase 2, B3 and B4 never. Counts
+    set to 0 before each part and read after it. Returns (launches on the
+    path, the kernels' inputs caught, the b = 16 sharded module and
+    stream)."""
+    from dectnrp_tpu_torch import multichip as M
+    from dectnrp_tpu_torch.common.mesh import Mesh
+    from dectnrp_tpu_torch.simulation import vspace
+
+    t_path = time.perf_counter()
+    res, launches = {"distinct_cards": 1, "shards": MC_SHARDS}, Counter()
+    catch = RuntimeCatch()
+    gen = torch.Generator(device=dev).manual_seed(41)
+    try:
+        for i, case in enumerate(MC_SYNC):
+            res[f"sync_{case[0]}"], d, sh, y = mc_sync_case(case, dev, gen, 40 + i)
+            launches.update(d)
+            if case[0] == "b16":
+                keep = (sh, y)
+
+        # (b) the node-sharded vspace tick vs the dense tick
+        N, A, S, nv = 8, 4, 2048, 0.1
+        mesh4 = Mesh(np.array([dev] * 4, dtype=object), ("node",))
+        tx = torch.randn((N, A, S), dtype=torch.complex64, generator=gen, device=dev)
+        gain = torch.rand((N, N), generator=gen, device=dev)
+        draws = vspace.draw_tick_sharded(gen, mesh4, N, A, S)
+        zero_counts()
+        got = torch.cat(vspace.tick_sharded(mesh4, tx, gain, nv, draws=draws))
+        torch.cuda.synchronize()
+        d = counts()
+        want = vspace.apply_tick(tx, gain, None, {"noise": torch.cat(draws)},
+                                 "awgn", 1_728_000.0, nv)
+        err = (got - want).abs().max().item()
+        require(err <= 1e-5 and not any(d.values()),
+                f"multichip (b): tick_sharded vs dense max |err| {err} "
+                f"(limit 1e-5), launches {d} (none)")
+        res["tick_sharded"] = {"N": N, "A": A, "spp": S, "shards": 4,
+                               "max_abs_err": err}
+
+        # (c) the dry run, each phase's launches read around it
+        per_phase = {}
+        orig = {n: getattr(M, n) for n in ("cross_node_loopback",
+                                           "sharded_sync_decode")}
+
+        def counted(name):
+            def run(*a, **k):
+                c0 = counts()
+                out = orig[name](*a, **k)
+                torch.cuda.synchronize()
+                per_phase[name] = launched_since(c0)
+                return out
+            return run
+        try:
+            for n in orig:
+                setattr(M, n, counted(n))
+            zero_counts()
+            t0 = time.perf_counter()
+            rec = M.dryrun_multichip([dev] * MC_SHARDS)
+            torch.cuda.synchronize()
+            dry_s = time.perf_counter() - t0
+            d = counts()
+        finally:
+            for n, f in orig.items():
+                setattr(M, n, f)
+        p1, p2 = per_phase["cross_node_loopback"], per_phase["sharded_sync_decode"]
+        require(rec["ok"] and (rec["n_node"], rec["n_dp"]) == (4, 2),
+                f"multichip (c): dryrun_multichip failed: {M.summary(rec)}")
+        require(p1["bcjr"] > 0 and p2["bcjr"] > 0 and p1["sync"] == 0
+                and p2["sync"] == MC_SHARDS and d["bcjr_bf16"] == 0
+                and d["polyphase"] == 0,
+                f"multichip (c): kernels not launched as expected (phase 1 "
+                f"{p1}, phase 2 {p2}, all {d})")
+        launches.update(d)
+        res["dryrun"] = {**M.summary(rec), "seconds": dry_s,
+                         "launches_phase1": p1, "launches_phase2": p2}
+    finally:
+        catch.close()
+    res["path_s"] = time.perf_counter() - t_path
+    report["multichip"] = res
+    s16, s1 = res["sync_b16"], res["sync_b1"]
+    print(f"[{card}] multichip: {MC_SHARDS} shards on {res['distinct_cards']} "
+          f"distinct card; (a) sharded sync b=16 {s16['shape']} in windows "
+          f"{s16['window']} found {s16['found']} (sent {s16['offsets']}), b=1 "
+          f"{s1['shape']} found {s1['found']}, each bit for bit the dense "
+          f"search, = the CPU, B2 {MC_SHARDS} launches; (b) tick_sharded "
+          f"[8, 4, 2048] over 4 shards max |err| {err:.3g} vs the dense tick; "
+          f"(c) dryrun_multichip 4 nodes x 2 dp: phase 1 TBs "
+          f"{int(rec['phase1']['tb_ok'].sum())}/{rec['phase1']['tb_ok'].size}, "
+          f"phase 2 sent {rec['offsets']}, found {rec['phase2']['found']} "
+          f"(false alarms {rec['phase2']['false_alarms']}), TBs decoded "
+          f"{rec['phase2']['tb_ok'].tolist()} in {dry_s:.2f} s; the path "
+          f"{res['path_s']:.1f} s; launches: "
+          + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return dict(launches), catch, keep
+
+
+def phase_multichip_kernels(dev, card, report, catch, keep):
+    """7g: B2 on the windows (a)'s shards handed it at b = 16 [8, 1,
+    39,936] and at b = 1 [8, 1, 8,640], held to its plain twin (off gate
+    ties) and its tiled twin (`_sync_check`), then timed by graph replay
+    beside its plain twin and bound; B1 on every (K, rows) the dry run
+    handed it (one window), bit for bit its plain twin (`bcjr_caught`);
+    the sharded search's host ms at 1, 2, 4 and 8 shards of the one card
+    beside the dense single call (no gate: on one card a split adds host
+    work and no speed)."""
+    from dectnrp_tpu_torch.common.mesh import Mesh
+    from dectnrp_tpu_torch.kernels import graph_us
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+    from dectnrp_tpu_torch.phy.sync_sharded import build_sync_sharded, sync_dense
+    from dectnrp_tpu_torch.sections.part3.transmission_packet_structure import (
+        get_N_samples_STF)
+
+    out = {"sync": {}, "bcjr": bcjr_caught(catch, "multichip", dev)}
+    for label, u, b, chunk, n_chunks, *_ in MC_SYNC:
+        shape = (n_chunks // MC_SHARDS, 1, chunk + 4 * get_N_samples_STF(u, b))
+        require(shape in catch.sync, f"multichip: B2 input {shape} not caught "
+                f"({sorted(catch.sync)})")
+        s, ys = catch.sync[shape]
+        key = f"{list(shape)}_b{b}".replace(" ", "")
+        err, err_t = _sync_check(s, ys, f"multichip_{key}", report)
+        sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold,
+                 s.params.metric_max)
+        b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
+        out["sync"][key] = {
+            "max_abs_err": err, "max_abs_err_tiled": err_t,
+            "ms": 1e-3 * graph_us(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "eager_ms": cuda_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "plain_ms": 1e-3 * graph_us(
+                lambda: sync_detect.detect_sm_plain(ys, *sargs), reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    # the sharded call's host time by shard count, beside the dense call
+    sh8, y = keep
+    u, b, chunk, n_chunks = 1, 16, sh8.chunk, sh8.n_chunks
+
+    def med(fn, n=5):
+        fn()
+        return statistics.median(host_ms(fn)[0] for _ in range(n))
+    host = {}
+    for n in (1, 2, 4, 8):
+        sh = build_sync_sharded(u, b, chunk, n_chunks, Mesh(
+            np.array([dev] * n, dtype=object), ("t",)))
+        host[f"{n}_shards"] = med(lambda: sh(y))
+    host["dense"] = med(lambda: sync_dense(sh8.syncs[dev], y, chunk, n_chunks,
+                                           sh8.overlap))
+    report["multichip_host_ms"] = host
+    print(f"[{card}] multichip: the sharded search of [1, {chunk * n_chunks}] "
+          f"(b=16, {n_chunks} chunks) on one card, host ms (median of 5): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in host.items()), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU")
@@ -2162,6 +2442,12 @@ def main() -> int:
     # beamforming, beta / integer CFO and the RMS gate, the chestim
     # options, the MMIE round trip, counted
     launches["phy_options"], opt_catch, opt_sync = phase_options(dev, card, report)
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    # ---- 6g. the multi-device code on the one card listed 8 times: the
+    # time-sharded sync, the node-sharded vspace tick, dryrun_multichip,
+    # counted
+    launches["multichip"], mc_catch, mc_keep = phase_multichip(dev, card, report)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 7. times [card]
@@ -2368,6 +2654,12 @@ def main() -> int:
     del opt_sync
     report["kernel_ms"]["phy_options"] = opt_times
     print_path_times(card, "phy_options", opt_times)
+    # ---- 7g. B1 and B2 on the inputs the multichip path handed them; the
+    # sharded search's host time by shard count
+    mc_times = phase_multichip_kernels(dev, card, report, mc_catch, mc_keep)
+    del mc_keep
+    report["kernel_ms"]["multichip"] = mc_times
+    print_path_times(card, "multichip", mc_times)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 8. profiles
@@ -2396,7 +2688,8 @@ def main() -> int:
          "loopback": path_entry(lb_times["bcjr"]),
          "runtime": path_entry(rt_times["bcjr"]),
          "iq_ingress": path_entry(iq_times["bcjr"]),
-         "phy_options": path_entry(opt_times["bcjr"])},
+         "phy_options": path_entry(opt_times["bcjr"]),
+         "multichip": path_entry(mc_times["bcjr"])},
         {"name": "bcjr_posterior_cm_bf16", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:188",
@@ -2407,7 +2700,8 @@ def main() -> int:
          "blocks_per_sm": report["bcjr_bf16_blocks_per_sm"],
          "shapes": {k: {kk: v[kk] for kk in ("ms", "bcjr_ms", "bound_ms")}
                     for k, v in bf16_shapes.items()},
-         "loopback": {}, "runtime": {}, "iq_ingress": {}, "phy_options": {}},
+         "loopback": {}, "runtime": {}, "iq_ingress": {}, "phy_options": {},
+         "multichip": {}},
         {"name": "sync_detect_sm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",
          "replaces": "dectnrp_tpu/phy/ops/sync_detect.py:62",
@@ -2423,7 +2717,8 @@ def main() -> int:
          "loopback": path_entry(lb_times["sync"]),
          "runtime": path_entry(rt_times["sync"]),
          "iq_ingress": path_entry(iq_times["sync"]),
-         "phy_options": path_entry(opt_times["sync"])},
+         "phy_options": path_entry(opt_times["sync"]),
+         "multichip": path_entry(mc_times["sync"])},
         {"name": "polyphase_fir", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
          "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",
@@ -2436,7 +2731,8 @@ def main() -> int:
                     for k, v in poly.items()},
          "loopback": path_entry(lb_times["polyphase"]),
          "runtime": path_entry(rt_times["polyphase"]),
-         "iq_ingress": path_entry(iq_times["polyphase"]), "phy_options": {}}]}
+         "iq_ingress": path_entry(iq_times["polyphase"]), "phy_options": {},
+         "multichip": {}}]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

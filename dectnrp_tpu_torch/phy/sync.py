@@ -56,6 +56,22 @@ def stf_time_template(u: int, b: int, N_eff_TX: int) -> np.ndarray:
     return (t / np.linalg.norm(t)).astype(np.complex64)
 
 
+def _sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """x [..., n] summed over its last dim in an order that does not depend
+    on how many rows x has: 32 columns at a time, repeatedly (zero padded).
+    PyTorch's CUDA reduction shares a long row among more threads when it
+    has fewer rows (Reduce.cuh, set_block_dimension), so a plain .sum(-1)
+    of the same row differs in its last bits between batch sizes; a row of
+    at most 32 is always one warp's. The time-sharded search relies on it:
+    its B = c_loc calls equal the dense search's one call bit for bit."""
+    while x.shape[-1] > 1:
+        pad = -x.shape[-1] % 32
+        if pad:
+            x = torch.cat([x, x.new_zeros((*x.shape[:-1], pad))], -1)
+        x = x.reshape(*x.shape[:-1], -1, 32).sum(-1)
+    return x[..., 0]
+
+
 def _windows(x: torch.Tensor, start: torch.Tensor, n: int) -> torch.Tensor:
     """x [B, R, T], start [B, K] -> x[b, :, start[b,k]:+n] as [B, K, R, n]."""
     B, R, _ = x.shape
@@ -108,8 +124,8 @@ class Sync(torch.nn.Module):
         L, P, R = self.L, self.P, x.shape[1]
         xw = _windows(x, t_coarse.clamp(0, self.T - L), L)        # [B,K,R,L]
         pwin = xw[..., :L - P] * torch.conj(xw[..., P:])
-        c = (pwin * self.w_rep).sum((-2, -1))
-        p2 = (xw.abs() ** 2).sum((-2, -1))
+        c = _sum_rows((pwin * self.w_rep).flatten(-2))
+        p2 = _sum_rows((xw.abs() ** 2).flatten(-2))
         met = self.norm * c.abs() / p2.clamp_min(1e-20)
         rms = torch.sqrt(p2 / (L * R))
         return c, met, rms

@@ -16,7 +16,10 @@ reproduced in torch, so a parity test hands the JAX package's own draws to
 the apply. The flat channel's edge matrices are drawn with numpy from
 `sim_seed`, as the JAX module draws them, and so are equal in both.
 
-The mesh-sharded tick (`tick_sharded`) is not ported (ROADMAP.md, A13).
+The mesh-sharded tick (`tick_sharded`) shards the node axis over a device
+mesh (common/mesh.py) and realizes the superposition as a reduce-scatter
+`psum` over it; its noise is drawn per shard (`draw_tick_sharded`) or
+handed in, as for the dense tick.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..common.mesh import Mesh, psum
 from .channels import apply_doubly, draw_doubly, draw_noise, tap_table
 from .topology import Trajectory, fspl_db
 
@@ -180,7 +184,47 @@ class VSpace:
         return rx
 
 
-def tick_sharded(*args, **kwargs):
-    """The mesh-sharded tick of the JAX package (node axis sharded,
-    superposition as a psum) is not ported (ROADMAP.md, A13)."""
-    raise NotImplementedError("vspace.tick_sharded is not ported yet (A13)")
+def _node_shards(mesh: Mesh, N: int):
+    """The devices along the mesh's "node" axis (index 0 on the others) and
+    the nodes a shard holds."""
+    devs = mesh.devices_along("node", (0,) * (len(mesh.axis_names) - 1))
+    if N % len(devs):
+        raise ValueError(f"tick_sharded: {N} nodes over {len(devs)} shards")
+    return devs, N // len(devs)
+
+
+def draw_tick_sharded(generator: torch.Generator, mesh: Mesh, N: int, A: int,
+                      spp: int) -> list[torch.Tensor]:
+    """The sharded tick's noise: one unit-variance complex64 block
+    [N / n_shards, A, spp] a shard, drawn on the generator's device in shard
+    order and moved to the shard's device."""
+    devs, n_local = _node_shards(mesh, N)
+    return [draw_noise(generator, (n_local, A, spp), generator.device).to(d)
+            for d in devs]
+
+
+def tick_sharded(mesh: Mesh, tx_spps: torch.Tensor, gain, noise_var: float,
+                 draws: list[torch.Tensor] | None = None,
+                 generator: torch.Generator | None = None) -> list[torch.Tensor]:
+    """Mesh-sharded vspace tick (dectnrp_tpu/simulation/vspace.py:158): the
+    node axis of tx_spps [N, A, spp] sharded over mesh axis "node"; each
+    shard weighs its nodes' TX into every receiver (identity antenna map,
+    gain[j, i]: tx j -> rx i), a reduce-scatter psum over "node" gives it
+    its own receivers' slice of the ether, then AWGN of variance noise_var
+    from `draws` (draw_tick_sharded's list; drawn from `generator` when not
+    given; one of the two is required). Returns the receivers' blocks
+    [N / n_shards, A, spp], one a shard in shard order, each on its device.
+    """
+    if draws is None:
+        if generator is None:
+            raise ValueError("tick_sharded: give the noise draws or a generator")
+        draws = draw_tick_sharded(generator, mesh, *tx_spps.shape)
+    devs, n_local = _node_shards(mesh, tx_spps.shape[0])
+    gain = torch.as_tensor(gain, dtype=torch.float32)
+    contrib = []
+    for i, d in enumerate(devs):
+        own = slice(i * n_local, (i + 1) * n_local)
+        g = gain[own].to(d, torch.complex64)                  # [n_local, N]
+        contrib.append(torch.einsum("ji,jas->ias", g, tx_spps[own].to(d)))
+    mine = psum(contrib, scatter_dim=0)                       # [n_local, A, spp]
+    return [m + noise_var ** 0.5 * n for m, n in zip(mine, draws)]

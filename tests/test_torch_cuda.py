@@ -560,3 +560,46 @@ def test_iq_file_card_matches_cpu(dev, tmp_path):
     assert n[0] == rt.stats.chunks
     assert n[1] == rt.front_end_steps
     assert n[2] == n[3] > 0, n
+
+
+def test_sharded_sync_card_matches_dense(dev):
+    """The time-sharded sync at b = 1 (chunk 8,192 x 64 over 8 shards of the
+    one card, SCALING_r04's chunk) is bit for bit the dense search
+    (sync_dense: all 64 windows in one Sync call on the card, masked the
+    same way), launches B2 once a shard, and finds the four packets: one
+    mid-shard, one straddling a chunk boundary, one the shard boundary
+    chunk 7 -> 8, one in the last shard."""
+    from dectnrp_tpu_torch.common.mesh import Mesh
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+    from dectnrp_tpu_torch.phy.sync import SyncParams
+    from dectnrp_tpu_torch.phy.sync_sharded import (build_sync_sharded,
+                                                    dedup_reports, sync_dense)
+    from dectnrp_tpu_torch.phy.tx import build_tx
+    from dectnrp_tpu_torch.sections.part3.packet_sizes import PacketSizesDef
+
+    chunk, n_chunks, n_sh = 8192, 64, 8
+    offs = [3 * chunk + 3000, 10 * chunk - 50, 8 * chunk - 60, 60 * chunk + 1234]
+    rng = np.random.default_rng(2)
+    n = len(offs)
+    psdef = PacketSizesDef(1, 1, 0, 2, 0, 2, 6144)
+    plcf = torch.as_tensor(rng.integers(0, 2, (n, 40)), dtype=torch.uint8, device=dev)
+    tb = torch.as_tensor(rng.integers(0, 2, (n, 456)), dtype=torch.uint8, device=dev)
+    fl = torch.zeros((n,), dtype=torch.bool, device=dev)
+    iq = build_tx(psdef, 0x12345678, 1, device=dev)(plcf, tb, fl, fl)
+    g = torch.Generator(device=dev).manual_seed(2)
+    y = 10 ** (-15 / 20) * torch.randn((1, chunk * n_chunks), dtype=torch.complex64,
+                                       generator=g, device=dev)
+    for i, o in enumerate(offs):
+        y[:, o:o + iq.shape[-1]] += iq[i]
+    sh = build_sync_sharded(1, 1, chunk, n_chunks,
+                            Mesh(np.array([dev] * n_sh, dtype=object), ("t",)),
+                            params=SyncParams(metric_threshold=0.35))
+    n0 = sync_detect.launches
+    got = sh(y)
+    assert sync_detect.launches == n0 + n_sh
+    want = sync_dense(sh.syncs[dev], y, chunk, n_chunks, sh.overlap)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    found = sorted(h["t_global"] for h in dedup_reports(
+        {k: v.cpu() for k, v in got.items()}, 1, 1))
+    assert len(found) == n and all(abs(f - o) <= 2 for f, o in zip(found, sorted(offs)))

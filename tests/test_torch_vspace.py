@@ -5,7 +5,8 @@ Superposition, path loss, leakage, noise and the flat channel's
 reciprocity run through both packages. The port draws with torch, so the
 tick parity cases hand it JAX's own draws, re-derived from the tick's key
 as `_tick_jit` splits it (`jax_tick_draws`), and hold its tick to JAX's
-within 1e-6 abs / 1e-5 rel. The mesh-sharded tick is not ported (A13).
+within 1e-6 abs / 1e-5 rel. The mesh-sharded tick on JAX's draws equals
+JAX's tick_sharded, and the dense tick, within 1e-5.
 """
 import numpy as np
 import pytest
@@ -126,9 +127,71 @@ def test_doubly_channel_runs():
     assert np.all(np.isfinite(rx))
 
 
-def test_tick_sharded_not_ported():
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.tick_sharded(None, None, None, 0.0, None)
+def jax_sharded_draws(key, n_shards, n_local, A, S):
+    """The noise JAX's tick_sharded draws, one block a shard as the port
+    takes it: split(fold_in(key, shard)) into two unit normals, scaled to
+    unit complex variance."""
+    out = []
+    for idx in range(n_shards):
+        k1, k2 = jax.random.split(jax.random.fold_in(key, idx))
+        n = np.asarray(jax.random.normal(k1, (n_local, A, S))) \
+            + 1j * np.asarray(jax.random.normal(k2, (n_local, A, S)))
+        out.append(torch.from_numpy((n / np.sqrt(2.0)).astype(np.complex64)))
+    return out
+
+
+@pytest.mark.parametrize("N,nv", [(4, 0.0), (4, 0.1), (8, 0.0), (8, 0.1)])
+def test_tick_sharded_not_ported(N, nv):
+    """The node-sharded tick (ported since A13; the name is kept) equals
+    JAX's tick_sharded on its 4-device mesh on JAX's draws within 1e-5, at
+    4 and 8 nodes over 4 shards, noise off and on; each receiver block on
+    its shard's device, in shard order."""
+    from jax.sharding import Mesh as JMesh
+
+    from dectnrp_tpu_torch.common.mesh import Mesh
+
+    n_sh, A, S = 4, 2, 128
+    rng = np.random.default_rng(N)
+    tx = (rng.standard_normal((N, A, S)) + 1j * rng.standard_normal((N, A, S))
+          ).astype(np.complex64)
+    gain = rng.random((N, N)).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(J.tick_sharded(JMesh(np.array(jax.devices()[:n_sh]),
+                                           ("node",)),
+                                     jnp.asarray(tx), jnp.asarray(gain), nv, key))
+    mesh = Mesh(np.array(["cpu"] * n_sh, dtype=object), ("node",))
+    got = T.tick_sharded(mesh, torch.from_numpy(tx), gain, nv,
+                         draws=jax_sharded_draws(key, n_sh, N // n_sh, A, S))
+    assert len(got) == n_sh and all(g.shape == (N // n_sh, A, S) for g in got)
+    np.testing.assert_allclose(torch.cat(got).numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_tick_sharded_equals_the_dense_tick():
+    """On the same draws the sharded tick is the dense awgn tick
+    (apply_tick, identity antenna map) within 1e-5; without draws it draws
+    from the generator, and with neither it raises."""
+    from dectnrp_tpu_torch.common.mesh import Mesh
+
+    N, A, S, nv = 8, 4, 256, 0.05
+    rng = np.random.default_rng(9)
+    tx = torch.from_numpy((rng.standard_normal((N, A, S))
+                           + 1j * rng.standard_normal((N, A, S))).astype(np.complex64))
+    gain = torch.from_numpy(rng.random((N, N)).astype(np.float32))
+    mesh = Mesh(np.array(["cpu"] * 4, dtype=object), ("node",))
+    gen = torch.Generator().manual_seed(1)
+    draws = T.draw_tick_sharded(gen, mesh, N, A, S)
+    assert [tuple(d.shape) for d in draws] == [(2, A, S)] * 4
+    got = torch.cat(T.tick_sharded(mesh, tx, gain, nv, draws=draws))
+    want = T.apply_tick(tx, gain, None, {"noise": torch.cat(draws)}, "awgn",
+                        1_728_000.0, nv)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    drawn = torch.cat(T.tick_sharded(mesh, tx, gain, nv,
+                                     generator=torch.Generator().manual_seed(1)))
+    assert torch.equal(drawn, got)
+    with pytest.raises(ValueError, match="draws or a generator"):
+        T.tick_sharded(mesh, tx, gain, nv)
+    with pytest.raises(ValueError, match="7 nodes over 4 shards"):
+        T.tick_sharded(mesh, tx[:7], gain[:7, :7], nv, generator=gen)
 
 
 @pytest.mark.parametrize("channel,n_ant", [("awgn", 1), ("flat", 2),
