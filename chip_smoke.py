@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Eight main paths, each driven once through its entry points with every
+Nine main paths, each driven once through its entry points with every
 kernel's launch count set to 0 just before it (and before each part of
-phy_options and multichip) and read just after:
+phy_options, multichip and multiprocess) and read just after:
   flagship  make_flagship_step: u=1 b=16 SISO MCS4, B = 64 streams of
             T = 192,512 samples, 2 packets each, 15 dB, no resampler;
   wall      make_wall_step: u=1 b=8, N_TX = 4 Alamouti transmit diversity,
@@ -62,7 +62,19 @@ phy_options and multichip) and read just after:
             of 32,768 over 8 shards, and at b = 1 in 64 chunks of 8,192
             (SCALING_r04's chunk); the node-sharded tick at 8 nodes x 4
             antennas x spp 2,048 over 4 shards; the dry run on 4 nodes x 2
-            dp (its own sizes, not cut).
+            dp (its own sizes, not cut);
+  multiprocess  the multi-process code (common/dist.py, the process-
+            spanning mesh of common/mesh.py, dcn_dryrun.py, scaling.py):
+            two spawned processes joined by gloo (a FileStore), each
+            holding the one card as its shards: the node-sharded tick at
+            N = 4, A = 1, spp 2,048 over 2 x 2 shards, four channels of
+            (1, 1, 0, 2, 0, 2) at 15 dB one a shard, and the time-sharded
+            sync at the flagship's numerology, [1, 2,097,152] in 64 chunks
+            of 32,768 over 2 x 4 shards (windows [8, 1, 39,936]), 4
+            flagship packets at 15 dB; then scaling in this process at its
+            full sizes (the sync at u = b = 1, chunk 8,192, 32 chunks
+            strong and 4 a shard weak, the tick at N = 8, spp 4,096, over
+            1, 2, 4, 8 shards of the card). Not cut.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
@@ -184,6 +196,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      TB and PLCF, every phase-2 packet found (+-2) and decoded (false
      alarms recorded), B1 in both phases, B2 8 in phase 2, B3 and B4
      never;
+  6h. the multiprocess path (phase_multiprocess): dcn_dryrun over gloo,
+     two processes on the card: (a) every shard within 0.02 of the host
+     superposition and bit for bit the one-process tick; (b) 4/4 TBs in
+     each process; (c) the report gathered on rank 0 finds the 4 packets
+     (+-2) and is bit for bit the one-process 8-shard and dense searches;
+     each child's launches: none in (a), B1 in (b), B2 once a shard (4) in
+     (c), B3 and B4 never; then scaling, every row held to the dense
+     output before it is timed, its held sharded call's launches counted
+     (B2 once a shard in the sync rows, none in the tick rows); each
+     process's host ms of the spanning search beside the one-process and
+     dense calls;
   7. times with CUDA events / synchronized host clocks: each step's median
      over 5 steps, its realtime multiple B*T / step time / radio rate,
      per-stage times, and each kernel next to its plain twin, its bound on
@@ -243,6 +266,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      b = 16 sharded search's host ms at 1, 2, 4 and 8 shards of the card
      beside the dense single call (recorded, not gated: on one card a
      split adds host work and no speed);
+  7h. the kernels on the multiprocess path's inputs, rebuilt in this
+     process from the children's seeds: B2 on rank 0's first shard's
+     windows of (c) [8, 1, 39,936], B1 on every (K, rows) of (b)'s four
+     channel steps (one window), each held to its twins, then timed as 7g;
   8. torch.profiler (device activity only) over one flagship and one wall
      step, one loopback point of `sync` and of `mimo_fading` (MCS 2 at
      the committed threshold, 500 packets) and one runtime exchange at each
@@ -367,12 +394,8 @@ def poly_work(G, L, rows, n_in, n_out):
 
 
 def counts():
-    from dectnrp_tpu_torch.phy.fec import bcjr_cuda
-    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
-    return {"bcjr": bcjr_cuda.launches,
-            "bcjr_one_window": bcjr_cuda.launches_one_window,
-            "bcjr_bf16": bcjr_cuda.launches_bf16,
-            "sync": sync_detect.launches, "polyphase": polyphase.launches}
+    from dectnrp_tpu_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def launched_since(c0):
@@ -2209,8 +2232,6 @@ def phase_multichip_kernels(dev, card, report, catch, keep):
     beside the dense single call (no gate: on one card a split adds host
     work and no speed)."""
     from dectnrp_tpu_torch.common.mesh import Mesh
-    from dectnrp_tpu_torch.kernels import graph_us
-    from dectnrp_tpu_torch.phy.ops import sync_detect
     from dectnrp_tpu_torch.phy.sync_sharded import build_sync_sharded, sync_dense
     from dectnrp_tpu_torch.sections.part3.transmission_packet_structure import (
         get_N_samples_STF)
@@ -2222,17 +2243,7 @@ def phase_multichip_kernels(dev, card, report, catch, keep):
                 f"({sorted(catch.sync)})")
         s, ys = catch.sync[shape]
         key = f"{list(shape)}_b{b}".replace(" ", "")
-        err, err_t = _sync_check(s, ys, f"multichip_{key}", report)
-        sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold,
-                 s.params.metric_max)
-        b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
-        out["sync"][key] = {
-            "max_abs_err": err, "max_abs_err_tiled": err_t,
-            "ms": 1e-3 * graph_us(lambda: sync_detect.detect_sm(ys, *sargs)),
-            "eager_ms": cuda_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
-            "plain_ms": 1e-3 * graph_us(
-                lambda: sync_detect.detect_sm_plain(ys, *sargs), reps=5),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        out["sync"][key] = sync_entry(s, ys, f"multichip_{key}", report)
     # the sharded call's host time by shard count, beside the dense call
     sh8, y = keep
     u, b, chunk, n_chunks = 1, 16, sh8.chunk, sh8.n_chunks
@@ -2252,6 +2263,146 @@ def phase_multichip_kernels(dev, card, report, catch, keep):
           f"(b=16, {n_chunks} chunks) on one card, host ms (median of 5): "
           + ", ".join(f"{k} {v:.2f}" for k, v in host.items()), flush=True)
     return out
+
+
+def phase_multiprocess(dev, card, report):
+    """6h, the multiprocess path: dcn_dryrun's (a) ether tick, (b) four
+    channels and (c) the process-spanning flagship-numerology search in two
+    spawned processes joined by gloo (common/dist.py), each holding the
+    card as its shards (2 a process in (a) and (b), 4 in (c)), every gate
+    of dcn_dryrun held; then scaling at its full sizes in this process,
+    every row held to the dense output. Each child counts its launches a
+    part: none in (a), B1 in (b), B2 once a shard in (c), B3 and B4 never;
+    each scaling row counts those of its one held sharded call (B2 once a
+    shard in the sync rows, none in the tick rows; its dense oracle,
+    warm-up and timed calls are not counted). The path's launches are
+    those counts summed. The library is built here first, so the children
+    only load it."""
+    from dectnrp_tpu_torch import dcn_dryrun, kernels, scaling
+
+    kernels.load()
+    t_path = time.perf_counter()
+    rec = dcn_dryrun.run("cuda", backend="gloo")
+    dcn_s = time.perf_counter() - t_path
+    require(rec["ok"] and rec["backend"] == "gloo"
+            and rec["distinct_devices"] == 1 and len(rec["reports"]) == 2,
+            f"multiprocess: dcn_dryrun failed its gates {rec['gates']} "
+            f"(backend {rec['backend']}, {rec['distinct_devices']} card)")
+    launches = Counter()
+    for r in rec["reports"]:
+        la, lb, lc = (r[k]["launches"] for k in ("ether", "channels", "sync"))
+        require(not any(la.values())
+                and lb["bcjr"] > 0 and lb["sync"] == 0
+                and lc["sync"] == dcn_dryrun.SYNC_LOCAL and lc["bcjr"] == 0
+                and lb["polyphase"] == lc["polyphase"] == 0
+                and lb["bcjr_bf16"] == lc["bcjr_bf16"] == 0,
+                f"multiprocess rank {r['rank']}: kernels not launched as "
+                f"expected ((a) {la}, (b) {lb}, (c) {lc}; none in (a), B1 in "
+                f"(b), B2 {dcn_dryrun.SYNC_LOCAL} in (c), B3 and B4 never)")
+        for part in (la, lb, lc):
+            launches.update(part)
+    t0 = time.perf_counter()
+    sc = scaling.run("cuda")
+    torch.cuda.synchronize()
+    sc_s = time.perf_counter() - t0
+    for sec in ("sync_sharded_strong", "sync_sharded_weak", "vspace_sharded"):
+        for row in sc[sec]:
+            d = row["launches"]
+            want_b2 = 0 if sec == "vspace_sharded" else row["n_dev"]
+            require(d["sync"] == want_b2
+                    and d["bcjr"] == d["bcjr_bf16"] == d["polyphase"] == 0,
+                    f"multiprocess scaling {sec} at {row['n_dev']} shards: "
+                    f"kernels not launched as expected ({d}; B2 {want_b2}, "
+                    f"no other)")
+            launches.update(d)
+    res = {"dcn": rec, "dcn_s": dcn_s, "scaling": sc, "scaling_s": sc_s,
+           "path_s": time.perf_counter() - t_path}
+    report["multiprocess"] = res
+    r0, r1 = rec["reports"]
+    s0 = r0["sync"]
+    print(f"[{card}] multiprocess: 2 processes over gloo, each holding the one "
+          f"card; (a) tick_sharded N=4 over 2 x 2 shards max |err| "
+          f"{max(r['ether']['ether_max_err'] for r in rec['reports']):.3g} vs the "
+          f"host superposition (limit {dcn_dryrun.ETHER_TOL}), bit for bit the "
+          f"one-process tick; (b) TBs {r0['channels']['channels_decoded_ok']}/4 "
+          f"and {r1['channels']['channels_decoded_ok']}/4; (c) the search of "
+          f"{s0['stream']} over 2 x {dcn_dryrun.SYNC_LOCAL} shards (windows "
+          f"{s0['window']}) found {s0['found']} (sent {s0['offsets']}), bit for "
+          f"bit the one-process 8-shard and dense searches; host ms a call "
+          f"(mean of {dcn_dryrun.TIMED}): spanning {s0['spanning_ms']:.2f} / "
+          f"{r1['sync']['spanning_ms']:.2f}, one process {s0['one_process_ms']:.2f}, "
+          f"dense {s0['dense_ms']:.2f}; dcn_dryrun {dcn_s:.1f} s; scaling "
+          f"{sc_s:.1f} s, sync strong ms by shards "
+          + ", ".join(f"{r['n_dev']}: {r['ms_per_stream']:.2f}"
+                      for r in sc["sync_sharded_strong"])
+          + "; vspace ms by shards "
+          + ", ".join(f"{r['n_dev']}: {r['ms_per_tick']:.3f}"
+                      for r in sc["vspace_sharded"])
+          + f"; the path {res['path_s']:.1f} s; launches: "
+          + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return dict(launches)
+
+
+def sync_entry(s, ys, label, report):
+    """B2 on caught windows: held to its plain twin off gate ties and its
+    tiled twin (`_sync_check`), then timed by graph replay beside its plain
+    twin and bound."""
+    from dectnrp_tpu_torch.kernels import graph_us
+    from dectnrp_tpu_torch.phy.ops import sync_detect
+
+    err, err_t = _sync_check(s, ys, label, report)
+    sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold, s.params.metric_max)
+    b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
+    return {"max_abs_err": err, "max_abs_err_tiled": err_t,
+            "ms": 1e-3 * graph_us(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "eager_ms": cuda_ms(lambda: sync_detect.detect_sm(ys, *sargs)),
+            "plain_ms": 1e-3 * graph_us(
+                lambda: sync_detect.detect_sm_plain(ys, *sargs), reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase_multiprocess_kernels(dev, report):
+    """7h: the kernels on the multiprocess path's inputs, rebuilt in this
+    process from the children's seeds and caught as they are handed over:
+    B1 on every (K, rows) of (b)'s four channel steps (`bcjr_caught`), B2
+    on rank 0's first shard's windows of (c) [8, 1, 39,936], each held to
+    its twins, then timed."""
+    from dectnrp_tpu_torch import dcn_dryrun as D
+    from dectnrp_tpu_torch.common.mesh import Mesh
+    from dectnrp_tpu_torch.phy.rx import build_rx
+    from dectnrp_tpu_torch.phy.sync_sharded import build_sync_sharded
+    from dectnrp_tpu_torch.phy.tx import build_tx
+    from dectnrp_tpu_torch.sections.part3.packet_sizes import get_packet_sizes
+    from dectnrp_tpu_torch.simulation.channels import draw_noise
+
+    n = D.N_PROC * D.LOCAL
+    catch = RuntimeCatch()
+    try:
+        _, _, rng = D.ether_inputs(n)
+        plcf, tb = D.channel_bits(rng, n)
+        ps = get_packet_sizes(D.PSDEF_CHAN)
+        gen = torch.Generator(device=dev).manual_seed(D.SEEDS[1])
+        noise = draw_noise(gen, (n, ps.tm_mode.N_TX, ps.N_samples_packet), dev)
+        tx = build_tx(D.PSDEF_CHAN, D.NID, 1, device=dev)
+        rx = build_rx(D.PSDEF_CHAN, D.NID, 1, device=dev)
+        for i in range(n):
+            D.channel_step(tx, rx, torch.from_numpy(plcf[i:i + 1]).to(dev),
+                           torch.from_numpy(tb[i:i + 1]).to(dev), noise[i:i + 1])
+        stream, _ = D.sync_stream(dev)
+        n_sh = D.N_PROC * D.SYNC_LOCAL
+        sh = build_sync_sharded(D.SYNC_U, D.SYNC_B, D.SYNC_CHUNK, D.SYNC_CHUNKS,
+                                Mesh(np.array([dev] * n_sh, dtype=object), ("t",)))
+        sh(stream)
+        torch.cuda.synchronize()
+    finally:
+        catch.close()
+    shape = (D.SYNC_CHUNKS // n_sh, 1, D.SYNC_CHUNK + sh.overlap)
+    require(shape in catch.sync, f"multiprocess: B2 input {shape} not caught "
+            f"({sorted(catch.sync)})")
+    s, ys = catch.sync[shape]
+    key = f"{list(shape)}_b{D.SYNC_B}".replace(" ", "")
+    return {"sync": {key: sync_entry(s, ys, f"multiprocess_{key}", report)},
+            "bcjr": bcjr_caught(catch, "multiprocess", dev)}
 
 
 def main() -> int:
@@ -2448,6 +2599,11 @@ def main() -> int:
     # time-sharded sync, the node-sharded vspace tick, dryrun_multichip,
     # counted
     launches["multichip"], mc_catch, mc_keep = phase_multichip(dev, card, report)
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    # ---- 6h. the multi-process code: dcn_dryrun in two processes joined by
+    # gloo on the one card, then scaling, counted
+    launches["multiprocess"] = phase_multiprocess(dev, card, report)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 7. times [card]
@@ -2660,6 +2816,10 @@ def main() -> int:
     del mc_keep
     report["kernel_ms"]["multichip"] = mc_times
     print_path_times(card, "multichip", mc_times)
+    # ---- 7h. B1 and B2 on the multiprocess path's inputs, rebuilt here
+    mp_times = phase_multiprocess_kernels(dev, report)
+    report["kernel_ms"]["multiprocess"] = mp_times
+    print_path_times(card, "multiprocess", mp_times)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 8. profiles
@@ -2689,7 +2849,8 @@ def main() -> int:
          "runtime": path_entry(rt_times["bcjr"]),
          "iq_ingress": path_entry(iq_times["bcjr"]),
          "phy_options": path_entry(opt_times["bcjr"]),
-         "multichip": path_entry(mc_times["bcjr"])},
+         "multichip": path_entry(mc_times["bcjr"]),
+         "multiprocess": path_entry(mp_times["bcjr"])},
         {"name": "bcjr_posterior_cm_bf16", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/bcjr_bf16.cu",
          "replaces": "dectnrp_tpu/phy/fec/bcjr_pallas.py:188",
@@ -2701,7 +2862,7 @@ def main() -> int:
          "shapes": {k: {kk: v[kk] for kk in ("ms", "bcjr_ms", "bound_ms")}
                     for k, v in bf16_shapes.items()},
          "loopback": {}, "runtime": {}, "iq_ingress": {}, "phy_options": {},
-         "multichip": {}},
+         "multichip": {}, "multiprocess": {}},
         {"name": "sync_detect_sm", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/sync_detect.cu",
          "replaces": "dectnrp_tpu/phy/ops/sync_detect.py:62",
@@ -2718,7 +2879,8 @@ def main() -> int:
          "runtime": path_entry(rt_times["sync"]),
          "iq_ingress": path_entry(iq_times["sync"]),
          "phy_options": path_entry(opt_times["sync"]),
-         "multichip": path_entry(mc_times["sync"])},
+         "multichip": path_entry(mc_times["sync"]),
+         "multiprocess": path_entry(mp_times["sync"])},
         {"name": "polyphase_fir", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
          "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",
@@ -2732,7 +2894,7 @@ def main() -> int:
          "loopback": path_entry(lb_times["polyphase"]),
          "runtime": path_entry(rt_times["polyphase"]),
          "iq_ingress": path_entry(iq_times["polyphase"]), "phy_options": {},
-         "multichip": {}}]}
+         "multichip": {}, "multiprocess": {}}]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

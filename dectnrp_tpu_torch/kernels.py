@@ -14,6 +14,8 @@ import every module of the port and never come here. `graph_us` (a call's
 device time by CUDA-graph replay) and `card_name` serve chip_smoke.py and
 the tools that time this tree's kernels against another tree's
 (`*_turns.py`); `build_one` builds that other tree's source.
+`launch_counts` reads the wrappers' launch counters (chip_smoke.py and the
+children of dcn_dryrun.py report them).
 """
 from __future__ import annotations
 
@@ -111,6 +113,18 @@ def load():
     _lib = _declare(ctypes.CDLL(str(so)))
     build_seconds = time.perf_counter() - t0
     return _lib
+
+
+def launch_counts() -> dict:
+    """Kernel launches of this process so far, by kernel: each wrapper
+    adds one where it launches its kernel (B1 also counts its one-window
+    launches apart), and nowhere else."""
+    from .phy.fec import bcjr_cuda
+    from .phy.ops import polyphase, sync_detect
+    return {"bcjr": bcjr_cuda.launches,
+            "bcjr_one_window": bcjr_cuda.launches_one_window,
+            "bcjr_bf16": bcjr_cuda.launches_bf16,
+            "sync": sync_detect.launches, "polyphase": polyphase.launches}
 
 
 def check(err: int, name: str) -> None:

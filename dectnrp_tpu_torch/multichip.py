@@ -21,8 +21,11 @@ its records:
    (`dedup_reports`), and every packet found decoded by `build_rx_stream`.
 
 `dryrun_multichip(devices)` makes both phases' inputs (numpy from fixed
-seeds, noise from `torch.Generator`s) and runs them. One process holds
-every shard (common/mesh.py); a device may be listed several times.
+seeds, noise from `torch.Generator`s) and runs them. It stays in one
+process, which holds every shard (common/mesh.py; a device may be listed
+several times): phase 1 reads every node's decisions on the host. The
+process-spanning form of the same collectives, over torch.distributed, is
+dcn_dryrun.py's (the port of tools/run_dcn_dryrun.py).
 """
 from __future__ import annotations
 

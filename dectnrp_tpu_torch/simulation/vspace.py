@@ -17,9 +17,10 @@ the apply. The flat channel's edge matrices are drawn with numpy from
 `sim_seed`, as the JAX module draws them, and so are equal in both.
 
 The mesh-sharded tick (`tick_sharded`) shards the node axis over a device
-mesh (common/mesh.py) and realizes the superposition as a reduce-scatter
-`psum` over it; its noise is drawn per shard (`draw_tick_sharded`) or
-handed in, as for the dense tick.
+mesh (common/mesh.py), in one process or spanning the processes of a
+torch.distributed group, and realizes the superposition as a
+reduce-scatter `psum` over it; its noise is drawn per shard
+(`draw_tick_sharded`) or handed in, as for the dense tick.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..common.mesh import Mesh, psum
+from ..common.mesh import Mesh
 from .channels import apply_doubly, draw_doubly, draw_noise, tap_table
 from .topology import Trajectory, fspl_db
 
@@ -185,46 +186,61 @@ class VSpace:
 
 
 def _node_shards(mesh: Mesh, N: int):
-    """The devices along the mesh's "node" axis (index 0 on the others) and
-    the nodes a shard holds."""
-    devs = mesh.devices_along("node", (0,) * (len(mesh.axis_names) - 1))
+    """The devices along the mesh's "node" axis (index 0 on the others),
+    the positions of this process's shards on it, and the nodes a shard
+    holds."""
+    at = (0,) * (len(mesh.axis_names) - 1)
+    devs = mesh.devices_along("node", at)
     if N % len(devs):
         raise ValueError(f"tick_sharded: {N} nodes over {len(devs)} shards")
-    return devs, N // len(devs)
+    return devs, mesh.local_along("node", at), N // len(devs)
 
 
 def draw_tick_sharded(generator: torch.Generator, mesh: Mesh, N: int, A: int,
                       spp: int) -> list[torch.Tensor]:
     """The sharded tick's noise: one unit-variance complex64 block
-    [N / n_shards, A, spp] a shard, drawn on the generator's device in shard
-    order and moved to the shard's device."""
-    devs, n_local = _node_shards(mesh, N)
-    return [draw_noise(generator, (n_local, A, spp), generator.device).to(d)
-            for d in devs]
+    [N / n_shards, A, spp] a shard, drawn on the generator's device in
+    global shard order (a process-spanning mesh's shards get the
+    one-process mesh's draws); this process's shards' blocks, each moved
+    to its shard's device."""
+    devs, local, n_local = _node_shards(mesh, N)
+    blocks = [draw_noise(generator, (n_local, A, spp), generator.device)
+              for _ in devs]
+    return [blocks[i].to(devs[i]) for i in local]
 
 
 def tick_sharded(mesh: Mesh, tx_spps: torch.Tensor, gain, noise_var: float,
                  draws: list[torch.Tensor] | None = None,
                  generator: torch.Generator | None = None) -> list[torch.Tensor]:
     """Mesh-sharded vspace tick (dectnrp_tpu/simulation/vspace.py:158): the
-    node axis of tx_spps [N, A, spp] sharded over mesh axis "node"; each
-    shard weighs its nodes' TX into every receiver (identity antenna map,
-    gain[j, i]: tx j -> rx i), a reduce-scatter psum over "node" gives it
-    its own receivers' slice of the ether, then AWGN of variance noise_var
-    from `draws` (draw_tick_sharded's list; drawn from `generator` when not
-    given; one of the two is required). Returns the receivers' blocks
-    [N / n_shards, A, spp], one a shard in shard order, each on its device.
+    node axis sharded over mesh axis "node"; each shard weighs its nodes'
+    TX into every receiver (identity antenna map, gain[j, i]: tx j -> rx
+    i, gain [N, N] replicated in every process), a reduce-scatter psum over
+    "node" gives it its own receivers' slice of the ether, then AWGN of
+    variance noise_var from `draws` (draw_tick_sharded's list; drawn from
+    `generator` when not given; one of the two is required). tx_spps [n,
+    A, spp] holds this process's shards' nodes in shard order (all N on a
+    one-process mesh; on a process-spanning one only its own rows, as
+    JAX's global array has addressable shards). Returns this process's
+    receivers' blocks [N / n_shards, A, spp], one a shard in shard order,
+    each on its device.
     """
+    gain = torch.as_tensor(gain, dtype=torch.float32)
+    N = gain.shape[0]
     if draws is None:
         if generator is None:
             raise ValueError("tick_sharded: give the noise draws or a generator")
-        draws = draw_tick_sharded(generator, mesh, *tx_spps.shape)
-    devs, n_local = _node_shards(mesh, tx_spps.shape[0])
-    gain = torch.as_tensor(gain, dtype=torch.float32)
+        draws = draw_tick_sharded(generator, mesh, N, *tx_spps.shape[1:])
+    devs, local, n_per = _node_shards(mesh, N)
+    if tx_spps.shape[0] != len(local) * n_per:
+        raise ValueError(f"tick_sharded: {tx_spps.shape[0]} TX rows for this "
+                         f"process's {len(local)} shards of {n_per} nodes")
     contrib = []
-    for i, d in enumerate(devs):
-        own = slice(i * n_local, (i + 1) * n_local)
-        g = gain[own].to(d, torch.complex64)                  # [n_local, N]
-        contrib.append(torch.einsum("ji,jas->ias", g, tx_spps[own].to(d)))
-    mine = psum(contrib, scatter_dim=0)                       # [n_local, A, spp]
+    for k, i in enumerate(local):
+        d = devs[i]
+        g = gain[i * n_per:(i + 1) * n_per].to(d, torch.complex64)  # [n_per, N]
+        x = tx_spps[k * n_per:(k + 1) * n_per].to(d)
+        contrib.append(torch.einsum("ji,jas->ias", g, x))
+    at = (0,) * (len(mesh.axis_names) - 1)
+    mine = mesh.psum(contrib, "node", at, scatter_dim=0)     # [n_per, A, spp]
     return [m + noise_var ** 0.5 * n for m, n in zip(mine, draws)]

@@ -342,6 +342,9 @@ def test_port_runs_without_jax():
         from dectnrp_tpu_torch.common import logging, watch  # noqa: F401
         from dectnrp_tpu_torch.sections import part5  # noqa: F401
         from dectnrp_tpu_torch.sections.part3 import duration_lut  # noqa: F401
+        # the multi-device and multi-process modules
+        from dectnrp_tpu_torch import dcn_dryrun, multichip, scaling  # noqa: F401
+        from dectnrp_tpu_torch.common import benchtime, dist  # noqa: F401
         assert "jax" not in sys.modules, "the port loaded jax"
         assert "dectnrp_tpu" not in sys.modules, "the port loaded the JAX package"
         print("JAX_FREE_OK")
