@@ -394,8 +394,9 @@ def poly_work(G, L, rows, n_in, n_out):
 
 
 def counts():
-    from dectnrp_tpu_torch.kernels import launch_counts
-    return launch_counts()
+    from dectnrp_tpu_torch.kernels import LAUNCH_KEYS, launch_counts
+    c = launch_counts()
+    return {k: c[k] for k in LAUNCH_KEYS}
 
 
 def launched_since(c0):

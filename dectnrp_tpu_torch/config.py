@@ -20,6 +20,7 @@ from pathlib import Path
 
 import torch
 
+from .common.trace import span
 from .radio.hw_simulator import HwSimulator, SimDriver
 from .simulation.topology import Position, Trajectory
 from .simulation.vspace import VNodeConfig, VSpaceConfig
@@ -120,10 +121,11 @@ class RunningScenario:
 
     def tick(self) -> None:
         t0 = time.perf_counter()
-        if self.driver is not None:
-            self.driver.tick()
-        for rt in self.runtimes:
-            rt.process()
+        with span("scenario.tick"):
+            if self.driver is not None:
+                self.driver.tick()
+            for rt in self.runtimes:
+                rt.process()
         self.tick_ms.append((time.perf_counter() - t0) * 1e3)
 
     def run_ticks(self, n: int) -> None:

@@ -52,7 +52,7 @@ import torch
 from .common import dist
 from .common.benchtime import synced_ms
 from .common.mesh import Mesh
-from .kernels import launch_counts
+from .kernels import LAUNCH_KEYS, launch_counts
 from .multichip import NID, make_stream
 from .phy.rx import build_rx
 from .phy.sync_sharded import (build_sync_sharded, dedup_reports,
@@ -78,7 +78,8 @@ TIMED = 5                      # calls a timing averages over
 
 
 def _since(c0: dict) -> dict:
-    return {k: v - c0[k] for k, v in launch_counts().items()}
+    c1 = launch_counts()
+    return {k: c1[k] - c0[k] for k in LAUNCH_KEYS}
 
 
 def ether_inputs(n_nodes: int):

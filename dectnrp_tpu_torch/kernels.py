@@ -14,8 +14,9 @@ import every module of the port and never come here. `graph_us` (a call's
 device time by CUDA-graph replay) and `card_name` serve chip_smoke.py and
 the tools that time this tree's kernels against another tree's
 (`*_turns.py`); `build_one` builds that other tree's source.
-`launch_counts` reads the wrappers' launch counters (chip_smoke.py and the
-children of dcn_dryrun.py report them).
+`launch_counts` reads the wrappers' launch counters, `LAUNCH_KEYS` (which
+chip_smoke.py, scaling.py and the children of dcn_dryrun.py report), and
+beside them the program's own counters and spans (`common/trace.py`).
 """
 from __future__ import annotations
 
@@ -115,16 +116,23 @@ def load():
     return _lib
 
 
+#: the kernel launch counters of `launch_counts`
+LAUNCH_KEYS = ("bcjr", "bcjr_one_window", "bcjr_bf16", "sync", "polyphase")
+
+
 def launch_counts() -> dict:
-    """Kernel launches of this process so far, by kernel: each wrapper
-    adds one where it launches its kernel (B1 also counts its one-window
-    launches apart), and nowhere else."""
+    """The program's counters so far in this process: kernel launches by
+    kernel (LAUNCH_KEYS: each wrapper adds one where it launches its
+    kernel, B1 also counts its one-window launches apart, and nowhere
+    else), then every counter and span aggregate of `trace.counters()`."""
+    from .common import trace
     from .phy.fec import bcjr_cuda
     from .phy.ops import polyphase, sync_detect
     return {"bcjr": bcjr_cuda.launches,
             "bcjr_one_window": bcjr_cuda.launches_one_window,
             "bcjr_bf16": bcjr_cuda.launches_bf16,
-            "sync": sync_detect.launches, "polyphase": polyphase.launches}
+            "sync": sync_detect.launches, "polyphase": polyphase.launches,
+            **trace.counters()}
 
 
 def check(err: int, name: str) -> None:

@@ -20,6 +20,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ...common.trace import count
 from ...sections.part3.cbsegm import CbSegm, cbsegm
 from ...sections.part3.scrambling import PCC_G_INIT, lte_pr_sequence, pdc_g_init
 from ..plan import device_tables
@@ -269,10 +270,12 @@ def pdc_decode_d(d_by_k: dict[int, torch.Tensor], plan: PdcPlan,
     bits_by_k = {}
     for K in by_k:
         if early_stop:
-            bits_by_k[K] = turbo_decode_early(d_by_k[K], t["m_k"][K], K,
-                                              n_iter_max=n_iter, n_iter_min=2)[0]
+            bits_by_k[K], _, _, n_it = turbo_decode_early(
+                d_by_k[K], t["m_k"][K], K, n_iter_max=n_iter, n_iter_min=2)
         else:
-            bits_by_k[K] = turbo_decode(d_by_k[K], K, n_iter)[0]
+            bits_by_k[K], n_it = turbo_decode(d_by_k[K], K, n_iter)[0], n_iter
+        count("fec.pdc_blocks")
+        count("fec.pdc_iters", n_it)
 
     ptr = {K: 0 for K in by_k}
     payloads = []

@@ -30,6 +30,7 @@ from functools import lru_cache, partial
 import numpy as np
 import torch
 
+from ...common.trace import d2h
 from ..plan import device_tables
 from .bcjr_cuda import (LW_MAX, NEG, bcjr_posterior_cm, bcjr_posterior_cm_bf16,
                         bcjr_windowed_cm_plain, trellis_tables)
@@ -367,7 +368,10 @@ def turbo_decode_early(d_llr: torch.Tensor, crc_m: torch.Tensor, K: int,
     for _ in range(n_it):
         La1, Lpost = one_iter(La1)
     ok = crc_ok(Lpost)
-    while n_it < n_iter_max and not bool(ok.all()):
+    while n_it < n_iter_max:
+        d2h(1)                              # the host waits for the flags
+        if bool(ok.all()):
+            break
         La1_n, Lpost_n = one_iter(La1)
         Lpost = freeze(ok, Lpost, Lpost_n)
         La1 = freeze(ok, La1, La1_n)

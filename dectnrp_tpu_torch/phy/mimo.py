@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..common.trace import h2d
 from ..sections.part3.beamforming import CODEBOOK_SIZES, get_all_W
 
 
@@ -76,8 +77,9 @@ def search(h_cells: torch.Tensor, N_TS: int = 1, reciprocal: bool = False):
     T = cells.shape[2]
     if (N_TS, T) not in CODEBOOK_SIZES:
         return None
-    Wall = torch.as_tensor(np.asarray(get_all_W(N_TS, T)).astype(np.complex64),
-                           device=cells.device)               # [n_cb, N_TX, N_TS]
+    W_host = np.asarray(get_all_W(N_TS, T)).astype(np.complex64)
+    h2d(W_host.nbytes)
+    Wall = torch.as_tensor(W_host, device=cells.device)      # [n_cb, N_TX, N_TS]
     z = torch.einsum("brtc,nts->bncrs", cells, Wall)
     p = (z.abs() ** 2).sum((3, 4))                            # [B, n_cb, cell]
     metric = p.min(-1).values                                 # [B, n_cb]

@@ -11,7 +11,10 @@ space's device, and the result is appended to each node's RX ring.
 The RX ring (reference buffer_rx_t: one shared ring, global time IS the
 sample counter) is a host numpy array window with an absolute-time origin,
 as in the JAX package. Each tick moves the [N, A, spp] TX block to the
-device and the RX block back, once each.
+device and the RX block back, once each. A tick is the span `sim.tick`,
+with the children `sim.assemble` (the TX block on the host), `sim.ether`
+(the copy, the space's tick, the read back) and `sim.deliver` (the RX
+rings and the radios' timed commands).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..common.trace import d2h, h2d, span
 from ..simulation.vspace import VNodeConfig, VSpace, VSpaceConfig
 from .hw import Hw
 
@@ -119,17 +123,24 @@ class SimDriver:
     def tick(self, draws: dict | None = None) -> None:
         """One spp period; `draws` (vspace.draw_tick's dict) replaces the
         space's own draws for this tick."""
-        t0 = self.vspace.now
-        A = self.vspace.A
-        tx = np.zeros((len(self.hws), A, self.spp), np.complex64)
-        for i, h in enumerate(self.hws):
-            tx[i, :h.n_ant] = h.assemble_tx_spp(t0, self.spp)
-        rx = self.vspace.tick(torch.from_numpy(tx).to(self.vspace.device),
-                              draws).cpu().numpy()
-        for i, h in enumerate(self.hws):
-            h.push_rx_spp(rx[i, :h.n_ant])
-            h.now = self.vspace.now
-            h.apply_due_commands(self.vspace.now)
+        with span("sim.tick"):
+            t0 = self.vspace.now
+            A = self.vspace.A
+            with span("sim.assemble"):
+                tx = np.zeros((len(self.hws), A, self.spp), np.complex64)
+                for i, h in enumerate(self.hws):
+                    tx[i, :h.n_ant] = h.assemble_tx_spp(t0, self.spp)
+            with span("sim.ether"):
+                h2d(tx.nbytes)
+                rx = self.vspace.tick(torch.from_numpy(tx).to(self.vspace.device),
+                                      draws)
+                d2h(rx.numel() * rx.element_size())
+                rx = rx.cpu().numpy()
+            with span("sim.deliver"):
+                for i, h in enumerate(self.hws):
+                    h.push_rx_spp(rx[i, :h.n_ant])
+                    h.now = self.vspace.now
+                    h.apply_due_commands(self.vspace.now)
 
     def run_until(self, t: int) -> None:
         while self.vspace.now < t:

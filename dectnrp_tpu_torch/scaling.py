@@ -40,7 +40,7 @@ import torch
 
 from .common.benchtime import synced_ms
 from .common.mesh import Mesh
-from .kernels import launch_counts
+from .kernels import LAUNCH_KEYS, launch_counts
 from .phy.sync_sharded import build_sync_sharded, report_mismatch, sync_dense
 from .sections.part3.transmission_packet_structure import get_N_samples_STF
 from .simulation.vspace import apply_tick, draw_tick_sharded, tick_sharded
@@ -67,7 +67,8 @@ def _launches(f, *args):
     """(f(*args), the kernel launches it made)."""
     c0 = launch_counts()
     out = f(*args)
-    return out, {k: v - c0[k] for k, v in launch_counts().items()}
+    c1 = launch_counts()
+    return out, {k: c1[k] - c0[k] for k in LAUNCH_KEYS}
 
 
 def held_sync(sh, iq: torch.Tensor, label: str) -> dict:

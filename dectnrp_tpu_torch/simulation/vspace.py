@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..common.mesh import Mesh
+from ..common.trace import h2d
 from .channels import apply_doubly, draw_doubly, draw_noise, tap_table
 from .topology import Trajectory, fspl_db
 
@@ -177,6 +178,7 @@ class VSpace:
             draws = self.draw()
         if self._gain_dev is None or not np.array_equal(self._gain, self._gain_sent):
             self._gain_sent = self._gain.copy()
+            h2d(self._gain_sent.nbytes)
             self._gain_dev = torch.from_numpy(self._gain_sent).to(self.device)
         rx = apply_tick(tx_spps, self._gain_dev, self._edge_H, draws,
                         self.cfg.channel_inter, self.cfg.samp_rate,
