@@ -41,6 +41,7 @@ SPANS = (
 COUNTERS = (
     "xfer.h2d", "xfer.h2d_bytes", "xfer.d2h", "xfer.d2h_bytes",
     "fec.pdc_blocks", "fec.pdc_iters", "runtime.module_builds",
+    "sim.rx_ring_bytes",
 )
 #: the prefix of the program's ranges in a profiler trace
 PREFIX = "dectnrp."

@@ -9,9 +9,12 @@ hw_simulator.cpp:370-619), pushed through the vspace superposition on the
 space's device, and the result is appended to each node's RX ring.
 
 The RX ring (reference buffer_rx_t: one shared ring, global time IS the
-sample counter) is a host numpy array window with an absolute-time origin,
-as in the JAX package. Each tick moves the [N, A, spp] TX block to the
-device and the RX block back, once each. A tick is the span `sim.tick`,
+sample counter) is a true ring on the host: a numpy array of twice the
+capacity C, sample t at column t mod C and again at t mod C + C, so every
+window of the last C samples is one contiguous view and a push writes only
+its own samples, twice (counter `sim.rx_ring_bytes`); no stored sample
+ever moves. Each tick moves the [N, A, spp] TX block to the device and the
+RX block back, once each. A tick is the span `sim.tick`,
 with the children `sim.assemble` (the TX block on the host), `sim.ether`
 (the copy, the space's tick, the read back) and `sim.deliver` (the RX
 rings and the radios' timed commands).
@@ -23,7 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..common.trace import d2h, h2d, span
+from ..common.trace import count, d2h, h2d, span
 from ..simulation.vspace import VNodeConfig, VSpace, VSpaceConfig
 from .hw import Hw
 
@@ -46,9 +49,9 @@ class HwSimulator(Hw):
         self._bursts: list[TxBurst] = []
         self._order_cnt = 0
         self.rx_ring_len = rx_ring_len
-        self.rx_ring: np.ndarray | None = None
-        self.rx_time = 0           # global time of rx_ring[..., 0]
-        self.rx_filled = 0
+        # sample t at columns t mod C and t mod C + C (a mirrored ring)
+        self.rx_ring = np.zeros((n_ant, 2 * rx_ring_len), np.complex64)
+        self.rx_time_passed = 0    # global time of the next sample pushed
         self.device = torch.device("cuda")
 
     # --- TX side ------------------------------------------------------------
@@ -78,28 +81,31 @@ class HwSimulator(Hw):
 
     # --- RX side ------------------------------------------------------------
     def push_rx_spp(self, spp_iq: np.ndarray) -> None:
-        if self.rx_ring is None:
-            self.rx_ring = np.zeros((self.n_ant, self.rx_ring_len), np.complex64)
+        """Append [A, n] samples, n <= C: the oldest n fall out of the ring."""
+        C = self.rx_ring_len
         n = spp_iq.shape[1]
-        if self.rx_filled + n > self.rx_ring_len:
-            # slide the window (oldest samples fall out of the ring)
-            drop = self.rx_filled + n - self.rx_ring_len
-            self.rx_ring[:, :-drop] = self.rx_ring[:, drop:]
-            self.rx_time += drop
-            self.rx_filled -= drop
-        self.rx_ring[:, self.rx_filled:self.rx_filled + n] = spp_iq
-        self.rx_filled += n
-
-    def get_rx_stream(self, t0: int, n: int) -> np.ndarray:
-        """[A, n] samples for global window [t0, t0+n) (must be in the ring)."""
-        off = t0 - self.rx_time
-        assert 0 <= off and off + n <= self.rx_filled, \
-            f"window [{t0},{t0+n}) outside ring [{self.rx_time},{self.rx_time+self.rx_filled})"
-        return self.rx_ring[:, off:off + n]
+        assert n <= C, f"push of {n} samples into a ring of {C}"
+        s = self.rx_time_passed % C
+        a = min(n, C - s)                  # samples that land below column C
+        r = self.rx_ring
+        r[:, s:s + n] = spp_iq             # may run on into the mirror half
+        r[:, C + s:C + s + a] = spp_iq[:, :a]
+        r[:, :n - a] = spp_iq[:, a:]
+        self.rx_time_passed += n
+        count("sim.rx_ring_bytes", 2 * n * r.shape[0] * r.itemsize)
 
     @property
-    def rx_time_passed(self) -> int:
-        return self.rx_time + self.rx_filled
+    def rx_time(self) -> int:
+        """Global time of the oldest sample held."""
+        return max(0, self.rx_time_passed - self.rx_ring_len)
+
+    def get_rx_stream(self, t0: int, n: int) -> np.ndarray:
+        """[A, n] samples for global window [t0, t0+n) (must be in the ring):
+        a view, never a copy."""
+        assert self.rx_time <= t0 and t0 + n <= self.rx_time_passed, \
+            f"window [{t0},{t0+n}) outside ring [{self.rx_time},{self.rx_time_passed})"
+        s = t0 % self.rx_ring_len
+        return self.rx_ring[:, s:s + n]
 
 
 class SimDriver:

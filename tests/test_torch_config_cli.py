@@ -4,11 +4,13 @@ firmware registry, full-stack construction on the CPU and short runs of
 the committed simulator configurations through
 `python -m dectnrp_tpu_torch.apps.dectnrp_main`, and the socket_radio
 scenario (a real-IQ radio on a UDP socket) from a copy of its
-configuration on a free port.
+configuration on a free port; p2p_simulator on RX rings cut short enough
+to wrap decides tick by tick as on the default ring.
 """
 import dataclasses
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,6 +82,44 @@ def test_p2p_simulator_scenario():
     ft, pt = run.firmwares
     assert pt.stats["beacons"] >= 2
     assert pt.state is AssocState.ASSOCIATED
+
+
+def _p2p_history(ticks: int):
+    """p2p_simulator on the CPU: after every tick, each node's RuntimeStats
+    and firmware stats and the PT's association state."""
+    run = T.build_scenario(T.load_scenario(f"{CONF}/p2p_simulator"), "cpu")
+    hist = []
+    for _ in range(ticks):
+        run.tick()
+        hist.append(([vars(rt.stats).copy() for rt in run.runtimes],
+                     [dict(f.stats) for f in run.firmwares],
+                     run.firmwares[1].state))
+    return run, hist
+
+
+def test_p2p_simulator_on_a_wrapped_rx_ring(monkeypatch):
+    """The radios' RX rings cut to 32 spp wrap three times in 100 ticks;
+    association, beacons heard and every PCC / PDC outcome stay, tick by
+    tick, those of the same seed on the default ring."""
+    from functools import partial
+
+    from dectnrp_tpu_torch.radio.hw_simulator import HwSimulator
+    from dectnrp_tpu_torch.upper.p2p import AssocState
+
+    ticks, cap = 100, 32 * 2048
+    big, want = _p2p_history(ticks)
+    monkeypatch.setattr(T, "HwSimulator", partial(HwSimulator, rx_ring_len=cap))
+    small, got = _p2p_history(ticks)
+    assert [h.rx_ring_len for h in small.hws] == [cap, cap]
+    assert got == want
+    stats, fw, state = got[-1]
+    assert state is AssocState.ASSOCIATED
+    assert fw[1]["beacons"] > got[ticks // 2][1][1]["beacons"] >= 2
+    assert all(s["pcc_ok"] and s["pdc_ok"] for s in stats)
+    for a, b in zip(small.hws, big.hws):     # the same samples, wrapped
+        assert a.rx_time == a.rx_time_passed - cap > 2 * cap
+        np.testing.assert_array_equal(a.get_rx_stream(a.rx_time, cap),
+                                      b.get_rx_stream(a.rx_time, cap))
 
 
 def test_socket_radio_scenario_not_ported(tmp_path):

@@ -1,8 +1,9 @@
 """The port's radio layer against the JAX package's (tests/test_radio_sim.py
 mirrored): gain LUT interpolation, hw rate negotiation and timed commands
-(copies: both packages give the same answers), the simulator's RX ring,
-and one packet over the air between two simulated nodes: the port's ether
-on JAX's draws hands node 1 the ring JAX's does, and both decode it.
+(copies: both packages give the same answers), the simulator's RX ring
+(the port's mirrored ring held to JAX's sliding window), and one packet
+over the air between two simulated nodes: the port's ether on JAX's draws
+hands node 1 the ring JAX's does, and both decode it.
 """
 import numpy as np
 import pytest
@@ -115,6 +116,66 @@ def test_rx_ring_sliding_window(g, h, s):
     assert hw.rx_time == 4 * 256
     blk = hw.get_rx_stream(4 * 256, 256)
     assert np.all(blk == 4)
+
+
+RING_PUSHES = {
+    # capacity, push lengths (and the seed of their samples)
+    "divides": (1024, [256] * 11),
+    "not_divides": (1000, [300, 7, 256, 999, 1, 512, 300, 300, 433]),
+    "whole_capacity": (768, [100, 768, 5, 768, 333, 768]),
+}
+
+
+def _windows(lo: int, hi: int, cap: int, n: int) -> list[tuple[int, int]]:
+    """Windows of [lo, hi): at the oldest edge, at the newest edge, the
+    whole span and, where a multiple of the capacity lies inside, across
+    the port's wrap point."""
+    m = min(n, hi - lo, 37)
+    out = [(lo, m), (hi - m, m), (lo, hi - lo)]
+    k = hi // cap * cap
+    if lo < k < hi:
+        out += [(max(lo, k - 5), min(hi, k + 5) - max(lo, k - 5)), (k, hi - k)]
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(RING_PUSHES))
+def test_rx_ring_matches_the_sliding_window(case):
+    """The port's mirrored ring against JAX's sliding window (the oracle)
+    over one seeded sequence of pushes: the same times after every push,
+    the same samples in every window, the same refusals outside."""
+    cap, lengths = RING_PUSHES[case]
+    rng = np.random.default_rng(cap)
+    j, t = Js.HwSimulator(2, rx_ring_len=cap), Ts.HwSimulator(2, rx_ring_len=cap)
+    for n in lengths:
+        x = (rng.standard_normal((2, n))
+             + 1j * rng.standard_normal((2, n))).astype(np.complex64)
+        j.push_rx_spp(x)
+        t.push_rx_spp(x)
+        assert (t.rx_time, t.rx_time_passed) == (j.rx_time, j.rx_time_passed)
+        lo, hi = t.rx_time, t.rx_time_passed
+        for t0, m in _windows(lo, hi, cap, n):
+            np.testing.assert_array_equal(t.get_rx_stream(t0, m),
+                                          j.get_rx_stream(t0, m))
+        np.testing.assert_array_equal(t.get_rx_stream(hi - n, n), x)
+        for t0, m in ((lo - 1, 2), (hi - 1, 2)):
+            for hw in (j, t):
+                with pytest.raises(AssertionError):
+                    hw.get_rx_stream(t0, m)
+    assert t.rx_time > 0                     # the ring filled and wrapped
+
+
+def test_rx_ring_counts_its_bytes():
+    """`sim.rx_ring_bytes` grows by 2 A n 8 a push, before and after the
+    ring fills: a push never costs the ring's capacity."""
+    from dectnrp_tpu_torch.common import trace
+
+    hw = Ts.HwSimulator(2, rx_ring_len=1000)
+    for n in (300, 700, 300, 999, 0):
+        c0 = trace.counters()["sim.rx_ring_bytes"]
+        hw.push_rx_spp(np.ones((2, n), np.complex64))
+        assert trace.counters()["sim.rx_ring_bytes"] - c0 == 2 * 2 * n * 8
+    with pytest.raises(AssertionError):
+        hw.push_rx_spp(np.ones((2, 1001), np.complex64))
 
 
 def test_sim_driver_moves_the_ether_to_its_device():
