@@ -241,7 +241,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      bound: B1 at every (K, rows) decoded (one window below K = 512, bit for
      bit its plain twin and turbo._bcjr_posterior; windowed at K = 880),
      B2 on a sync chunk [1, R, 2,496] at R = 1 and 2, B3 on the 10/9 TX
-     burst and the 9/10 front-end step (history + 5,120 radio samples), bit
+     burst and the 9/10 front-end step (history + 1,280 radio samples), bit
      for bit its tiled twin and at rtol 2e-5 / atol 2e-5 its plain twin;
   7d. a runtime tick's host time by layer: one exchange at each rate with
      every stage synchronized and timed (vspace tick, the 9/10 front end,
@@ -1481,7 +1481,7 @@ def phase_runtime_kernels(dev, report, catch, path="runtime"):
     twin and turbo._bcjr_posterior, and windowed at the 2 x 2 exchange's
     PDC (K = 880), bit for bit its plain twin; B2 on a sync chunk [1, R, 2,496] at R = 1 and 2
     (`_sync_check`); B3 on the 10/9 TX burst and the 9/10 front-end step
-    (history + 5,120 radio samples), bit for bit its tiled twin and within
+    (history + 1,280 radio samples), bit for bit its tiled twin and within
     POLY_TOL of its plain twin, conv1d beside it."""
     from dectnrp_tpu_torch.kernels import graph_us
     from dectnrp_tpu_torch.phy.ops import sync_detect
@@ -1674,7 +1674,7 @@ def phase_iq(dev, card, report):
           the card, written to a cf32 file at 25 dB, read free-running by
           HwIqStream into NodeRuntime on the card: all 3 TBs, no overrun,
           the whole file delivered, and the same RuntimeStats, detection
-          times and TBs as on the CPU; B2 once a chunk, B3 once a 5,120-
+          times and TBs as on the CPU; B2 once a chunk, B3 once a 1,280-
           sample front-end step and once a TX burst, B1 as one window
           only, B4 never;
       (b) configurations/socket_radio through apps.dectnrp_main.run (a copy

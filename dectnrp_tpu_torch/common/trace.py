@@ -33,7 +33,7 @@ SPANS = (
     "scenario.tick",
     "sim.tick", "sim.assemble", "sim.ether", "sim.deliver",
     "runtime.process", "runtime.pump", "runtime.sync", "runtime.pcc",
-    "runtime.pdc", "runtime.tx",
+    "runtime.pdc", "runtime.tx", "runtime.tx_resample",
     "firmware.start", "firmware.regular", "firmware.irregular",
     "firmware.pcc", "firmware.pcc_error", "firmware.pdc",
     "firmware.pdc_error", "firmware.application",
@@ -42,6 +42,8 @@ COUNTERS = (
     "xfer.h2d", "xfer.h2d_bytes", "xfer.d2h", "xfer.d2h_bytes",
     "fec.pdc_blocks", "fec.pdc_iters", "runtime.module_builds",
     "sim.rx_ring_bytes",
+    "runtime.pump_steps", "runtime.pump_skipped_steps",
+    "runtime.dbuf_slide_bytes",
 )
 #: the prefix of the program's ranges in a profiler trace
 PREFIX = "dectnrp."

@@ -24,10 +24,14 @@ to the device once; each PHY call's report comes back in one transfer
 
 Tracing (common/trace.py): `runtime.process` spans a call, with a child
 span for each stage (`runtime.pump`, `runtime.sync` a chunk,
-`runtime.pcc`, `runtime.pdc`, `runtime.tx`) and `firmware.<callback>`
-around each firmware call; the spans of one packet carry its `t_global`.
-Every copy to the device and read back is counted (`xfer.*`), and so is a
-PHY module built (`runtime.module_builds`).
+`runtime.pcc`, `runtime.pdc`, `runtime.tx`, inside it
+`runtime.tx_resample`) and `firmware.<callback>` around each firmware
+call; the spans of one packet carry its `t_global`. Every copy to the
+device and read back is counted (`xfer.*`), and so is a PHY module built
+(`runtime.module_builds`). The resampler front end counts its steps
+(`runtime.pump_steps`; those an overrun skips under
+`runtime.pump_skipped_steps`) and the bytes its DECT-rate buffer's slide
+moves (`runtime.dbuf_slide_bytes`); at the DECT rate all three stay 0.
 
 Application layer: an `app_server` (application/socket_app.SocketServer or
 anything with `read_all()`) is drained into `work_application` each
@@ -209,7 +213,13 @@ class NodeRuntime:
             tpoint.lower = hw
         else:
             tpoint.lower = _DectLower(hw, self)
-            self._chunk_pump = 512 * L                 # hw samples per step
+            # hw samples per step. The DECT-rate buffer, and with it the
+            # sync and the firmware's irregular callbacks, lag the radio by
+            # up to a step more than at the DECT rate: steps of 2.67 ms at
+            # 1.92 Ms/s (512 L) made a p2p FT's beacon callback, 12 subslots
+            # (2.5 ms) ahead of its air time, fire after it in every other
+            # beacon period; steps of 0.67 ms do not
+            self._chunk_pump = 128 * L
             self._rx_step = _module("resampler_stream",
                                     (self.plan_rx, self._chunk_pump), self._dev)
             self._rx_H = self._rx_step.H
@@ -268,6 +278,8 @@ class NodeRuntime:
         if self._dbuf_filled + n > cap:
             drop = self._dbuf_filled + n - cap
             self._dbuf[:, :-drop] = self._dbuf[:, drop:]
+            count("runtime.dbuf_slide_bytes",
+                  self._dbuf.shape[0] * (cap - drop) * self._dbuf.itemsize)
             self._dbuf_time += drop
             self._dbuf_filled -= drop
         self._dbuf[:, self._dbuf_filled:self._dbuf_filled + n] = y
@@ -303,12 +315,14 @@ class NodeRuntime:
                     out_per_chunk = self._chunk_pump * self.plan_rx.L \
                         // self.plan_rx.M
                     self._hw_consumed += skip * self._chunk_pump
+                    count("runtime.pump_skipped_steps", skip)
                     self._hist = torch.zeros_like(self._hist)
                     self._append_dect(np.zeros(
                         (self.hw.n_ant, skip * out_per_chunk), np.complex64))
                     continue
                 y, self._hist = self._rx_step(self._to_dev(x), self._hist)
                 self._hw_consumed += self._chunk_pump
+                count("runtime.pump_steps")
                 d2h(y.numel() * y.element_size())
                 self._append_dect(y.cpu().numpy())
 
@@ -354,8 +368,10 @@ class NodeRuntime:
                     fl = torch.zeros((1,), dtype=torch.bool, device=self.device)
                     iq = tx(bits[:, :n_bits], bits[:, n_bits:], fl, fl)[0]
                     if not self.plan_tx.identity:
-                        iq = _module("resampler", (self.plan_tx, iq.shape[-1]),
-                                     self._dev)(iq)
+                        with span("runtime.tx_resample"):
+                            iq = _module("resampler",
+                                         (self.plan_tx, iq.shape[-1]),
+                                         self._dev)(iq)
                     d2h(iq.numel() * iq.element_size())
                     iq = iq.cpu().numpy()
                     t_hw = self._dect_to_hw(td.tx_time)

@@ -353,7 +353,7 @@ def test_process_returns_over_a_radio_that_outruns_it(rate):
         if rate == 1_728_000:           # the DECT rate: chunks off the ring
             assert rt._processed + rt.overlap <= head \
                 < rt._processed + rt.chunk_len + rt.overlap
-        else:                           # 9/10 front end, 5,120-sample steps
+        else:                           # 9/10 front end, 1,280-sample steps
             assert rt._hw_consumed == head
     assert rt.stats.chunks > 0
 
@@ -429,7 +429,26 @@ def _jax_exchange(kind):
     rt_tx = JRt(hws[0], tx_fw, IDENT.network_id, regular_period=8192,
                 hw_samp_rate=rate)
     rt_rx = JRt(hws[1], rx_fw, IDENT.network_id, hw_samp_rate=rate)
+    for rt in (rt_tx, rt_rx):
+        _port_front_end_step(rt)
     return drv, tx_fw, rx_fw, rt_tx, rt_rx
+
+
+def _port_front_end_step(jrt) -> None:
+    """Give a JAX runtime off the DECT rate the port's front-end step (a
+    quarter of JAX's 512 L hw samples, upper/runtime.py), so both resample
+    and sync the same samples in the same process() calls."""
+    if jrt.plan_tx.identity:
+        return
+    from dectnrp_tpu.common.cplx import cwrap_cached
+    from dectnrp_tpu.phy.resampler import build_resampler_stream as j_stream
+
+    port = NodeRuntime(HwSimulator(1), Tpoint(), IDENT.network_id,
+                       hw_samp_rate=jrt.dect_rate * jrt.plan_tx.L
+                       // jrt.plan_tx.M, device="cpu")
+    jrt._chunk_pump = port._chunk_pump
+    step, jrt._rx_H = j_stream(jrt.plan_rx, jrt._chunk_pump)
+    jrt._rx_step = cwrap_cached(step)
 
 
 @pytest.mark.parametrize("kind", ["dect", "sdr"])
