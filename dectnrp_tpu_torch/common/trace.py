@@ -43,7 +43,7 @@ COUNTERS = (
     "fec.pdc_blocks", "fec.pdc_iters", "runtime.module_builds",
     "sim.rx_ring_bytes",
     "runtime.pump_steps", "runtime.pump_skipped_steps",
-    "runtime.dbuf_slide_bytes",
+    "runtime.dbuf_slide_bytes", "runtime.dbuf_ring_bytes",
 )
 #: the prefix of the program's ranges in a profiler trace
 PREFIX = "dectnrp."

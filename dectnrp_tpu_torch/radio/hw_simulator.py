@@ -9,11 +9,11 @@ hw_simulator.cpp:370-619), pushed through the vspace superposition on the
 space's device, and the result is appended to each node's RX ring.
 
 The RX ring (reference buffer_rx_t: one shared ring, global time IS the
-sample counter) is a true ring on the host: a numpy array of twice the
-capacity C, sample t at column t mod C and again at t mod C + C, so every
-window of the last C samples is one contiguous view and a push writes only
-its own samples, twice (counter `sim.rx_ring_bytes`); no stored sample
-ever moves. Each tick moves the [N, A, spp] TX block to the device and the
+sample counter) is a true ring on the host, `common/ring.MirroredRing`:
+sample t at column t mod C and again at t mod C + C of twice the capacity
+C, so every window of the last C samples is one contiguous view and a push
+writes only its own samples, twice (counter `sim.rx_ring_bytes`); no
+stored sample ever moves. Each tick moves the [N, A, spp] TX block to the device and the
 RX block back, once each. A tick is the span `sim.tick`,
 with the children `sim.assemble` (the TX block on the host), `sim.ether`
 (the copy, the space's tick, the read back) and `sim.deliver` (the RX
@@ -26,7 +26,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..common.trace import count, d2h, h2d, span
+from ..common.ring import MirroredRing
+from ..common.trace import d2h, h2d, span
 from ..simulation.vspace import VNodeConfig, VSpace, VSpaceConfig
 from .hw import Hw
 
@@ -49,9 +50,7 @@ class HwSimulator(Hw):
         self._bursts: list[TxBurst] = []
         self._order_cnt = 0
         self.rx_ring_len = rx_ring_len
-        # sample t at columns t mod C and t mod C + C (a mirrored ring)
-        self.rx_ring = np.zeros((n_ant, 2 * rx_ring_len), np.complex64)
-        self.rx_time_passed = 0    # global time of the next sample pushed
+        self._ring = MirroredRing(n_ant, rx_ring_len, "sim.rx_ring_bytes")
         self.device = torch.device("cuda")
 
     # --- TX side ------------------------------------------------------------
@@ -82,30 +81,22 @@ class HwSimulator(Hw):
     # --- RX side ------------------------------------------------------------
     def push_rx_spp(self, spp_iq: np.ndarray) -> None:
         """Append [A, n] samples, n <= C: the oldest n fall out of the ring."""
-        C = self.rx_ring_len
-        n = spp_iq.shape[1]
-        assert n <= C, f"push of {n} samples into a ring of {C}"
-        s = self.rx_time_passed % C
-        a = min(n, C - s)                  # samples that land below column C
-        r = self.rx_ring
-        r[:, s:s + n] = spp_iq             # may run on into the mirror half
-        r[:, C + s:C + s + a] = spp_iq[:, :a]
-        r[:, :n - a] = spp_iq[:, a:]
-        self.rx_time_passed += n
-        count("sim.rx_ring_bytes", 2 * n * r.shape[0] * r.itemsize)
+        self._ring.push(spp_iq)
+
+    @property
+    def rx_time_passed(self) -> int:
+        """Global time of the next sample pushed."""
+        return self._ring.end
 
     @property
     def rx_time(self) -> int:
         """Global time of the oldest sample held."""
-        return max(0, self.rx_time_passed - self.rx_ring_len)
+        return self._ring.start
 
     def get_rx_stream(self, t0: int, n: int) -> np.ndarray:
         """[A, n] samples for global window [t0, t0+n) (must be in the ring):
         a view, never a copy."""
-        assert self.rx_time <= t0 and t0 + n <= self.rx_time_passed, \
-            f"window [{t0},{t0+n}) outside ring [{self.rx_time},{self.rx_time_passed})"
-        s = t0 % self.rx_ring_len
-        return self.rx_ring[:, s:s + n]
+        return self._ring.window(t0, n)
 
 
 class SimDriver:

@@ -17,7 +17,10 @@ re-demodulated with the right psdef (the reference's two-phase
 demoddecod_rx_pcc / demoddecod_rx_pdc split, rx_synced.cpp:186-436).
 
 Host boundary: the RX ring and the DECT-rate buffer stay on the host as in
-the JAX package. A sync chunk, a packet window or a resampler input goes
+the JAX package. Off the DECT rate the buffer is a mirrored ring
+(`common/ring.MirroredRing`, as the simulated radio's RX ring): a
+front-end step writes only its own samples, twice, and a window is a
+view. A sync chunk, a packet window or a resampler input goes
 to the device once; each PHY call's report comes back in one transfer
 (`_host`). The PHY modules are built once per (arguments, device)
 (`_module`): the builders themselves are not cached.
@@ -30,8 +33,10 @@ call; the spans of one packet carry its `t_global`. Every copy to the
 device and read back is counted (`xfer.*`), and so is a PHY module built
 (`runtime.module_builds`). The resampler front end counts its steps
 (`runtime.pump_steps`; those an overrun skips under
-`runtime.pump_skipped_steps`) and the bytes its DECT-rate buffer's slide
-moves (`runtime.dbuf_slide_bytes`); at the DECT rate all three stay 0.
+`runtime.pump_skipped_steps`) and the bytes written into its DECT-rate
+ring, mirror included (`runtime.dbuf_ring_bytes`); at the DECT rate all
+three stay 0. `runtime.dbuf_slide_bytes` stays registered at 0: no buffer
+slides.
 
 Application layer: an `app_server` (application/socket_app.SocketServer or
 anything with `read_all()`) is drained into `work_application` each
@@ -46,6 +51,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..common.ring import MirroredRing
 from ..common.trace import count, d2h, h2d, span
 from ..phy.mimo import MimoReport, search as mimo_search
 from ..phy.resampler import (ResamplerPlan, build_resampler,
@@ -227,10 +233,9 @@ class NodeRuntime:
             self._hist = None
             self._hw_origin: int | None = None         # hw time of feed start
             self._hw_consumed = 0
-            cap = getattr(hw, "rx_ring_len", 1 << 20)
-            self._dbuf = np.zeros((hw.n_ant, cap), np.complex64)
-            self._dbuf_time = 0                        # dect index of col 0
-            self._dbuf_filled = 0
+            self._dbuf = MirroredRing(hw.n_ant,
+                                      getattr(hw, "rx_ring_len", 1 << 20),
+                                      "runtime.dbuf_ring_bytes", "dect buffer")
 
     def _to_dev(self, x: np.ndarray) -> torch.Tensor:
         x = np.ascontiguousarray(x)
@@ -255,35 +260,13 @@ class NodeRuntime:
     def _dect_time_passed(self) -> int:
         if self.plan_tx.identity:
             return self.hw.rx_time_passed
-        return self._dbuf_time + self._dbuf_filled
+        return self._dbuf.end
 
     def _get_stream(self, t0: int, n: int) -> np.ndarray:
         """[A, n] DECT-rate samples for window [t0, t0+n)."""
         if self.plan_tx.identity:
             return self.hw.get_rx_stream(t0, n)
-        off = t0 - self._dbuf_time
-        assert 0 <= off and off + n <= self._dbuf_filled, \
-            f"window [{t0},{t0+n}) outside dect buffer " \
-            f"[{self._dbuf_time},{self._dbuf_time+self._dbuf_filled})"
-        return self._dbuf[:, off:off + n]
-
-    def _append_dect(self, y: np.ndarray) -> None:
-        n = y.shape[-1]
-        cap = self._dbuf.shape[-1]
-        if n >= cap:                       # giant skip: keep only the tail
-            self._dbuf[:] = y[:, -cap:]
-            self._dbuf_time += self._dbuf_filled + n - cap
-            self._dbuf_filled = cap
-            return
-        if self._dbuf_filled + n > cap:
-            drop = self._dbuf_filled + n - cap
-            self._dbuf[:, :-drop] = self._dbuf[:, drop:]
-            count("runtime.dbuf_slide_bytes",
-                  self._dbuf.shape[0] * (cap - drop) * self._dbuf.itemsize)
-            self._dbuf_time += drop
-            self._dbuf_filled -= drop
-        self._dbuf[:, self._dbuf_filled:self._dbuf_filled + n] = y
-        self._dbuf_filled += n
+        return self._dbuf.window(t0, n)
 
     def _pump(self) -> None:
         """Resample newly received hw samples into the DECT-rate buffer."""
@@ -317,14 +300,13 @@ class NodeRuntime:
                     self._hw_consumed += skip * self._chunk_pump
                     count("runtime.pump_skipped_steps", skip)
                     self._hist = torch.zeros_like(self._hist)
-                    self._append_dect(np.zeros(
-                        (self.hw.n_ant, skip * out_per_chunk), np.complex64))
+                    self._dbuf.skip(skip * out_per_chunk)
                     continue
                 y, self._hist = self._rx_step(self._to_dev(x), self._hist)
                 self._hw_consumed += self._chunk_pump
                 count("runtime.pump_steps")
                 d2h(y.numel() * y.element_size())
-                self._append_dect(y.cpu().numpy())
+                self._dbuf.push(y.cpu().numpy())
 
     @property
     def front_end_steps(self) -> int:
@@ -581,7 +563,7 @@ class NodeRuntime:
 
             # retry stages waiting for more samples: PDC first (older packets,
             # FIFO job order), then detections awaiting their PCC window
-            window_start = self._dbuf_time if not self.plan_tx.identity \
+            window_start = self._dbuf.start if not self.plan_tx.identity \
                 else self.hw.rx_time
             still_pdc = []
             for args in self._pending_pdc:

@@ -1,7 +1,8 @@
 """The port's radio layer against the JAX package's (tests/test_radio_sim.py
 mirrored): gain LUT interpolation, hw rate negotiation and timed commands
 (copies: both packages give the same answers), the simulator's RX ring
-(the port's mirrored ring held to JAX's sliding window), and one packet
+(the port's mirrored ring held to JAX's sliding window; the ring's
+zero-fill, which the runtime's DECT-rate ring uses), and one packet
 over the air between two simulated nodes: the port's ether on JAX's draws
 hands node 1 the ring JAX's does, and both decode it.
 """
@@ -176,6 +177,34 @@ def test_rx_ring_counts_its_bytes():
         assert trace.counters()["sim.rx_ring_bytes"] - c0 == 2 * 2 * n * 8
     with pytest.raises(AssertionError):
         hw.push_rx_spp(np.ones((2, 1001), np.complex64))
+
+
+@pytest.mark.parametrize("n", [999, 1000, 2501])
+def test_ring_zero_fill_writes_at_most_its_capacity(n):
+    """The shared ring's `skip` (an overrun's zero-fill, which the runtime's
+    DECT-rate ring uses and the simulator does not): the time advances by n,
+    the newest min(n, C) samples read as zeros, what is still held of the
+    older ones is unmoved, and it writes 2 A min(n, C) 8 bytes."""
+    from dectnrp_tpu_torch.common import trace
+    from dectnrp_tpu_torch.common.ring import MirroredRing
+
+    cap = 1000
+    ring = MirroredRing(2, cap, "runtime.dbuf_ring_bytes")
+    x = np.arange(2 * 1300, dtype=np.float32).reshape(2, 1300).astype(np.complex64)
+    ring.push(x[:, :700])
+    ring.push(x[:, 700:])
+    c0 = trace.counters()["runtime.dbuf_ring_bytes"]
+    ring.skip(n)
+    assert trace.counters()["runtime.dbuf_ring_bytes"] - c0 \
+        == 2 * 2 * min(n, cap) * 8
+    assert (ring.start, ring.end) == (1300 + n - cap, 1300 + n)
+    m = min(n, cap)
+    assert not ring.window(ring.end - m, m).any()
+    if n < cap:
+        np.testing.assert_array_equal(ring.window(ring.start, cap - n),
+                                      x[:, n - cap:])
+    with pytest.raises(AssertionError):
+        ring.window(ring.start - 1, 1)
 
 
 def test_sim_driver_moves_the_ether_to_its_device():

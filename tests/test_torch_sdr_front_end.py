@@ -1,18 +1,22 @@
 """The runtime's resampler front end on radios at 1.92 Ms/s, on the CPU:
 its counters (`runtime.pump_steps`, `runtime.pump_skipped_steps`,
-`runtime.dbuf_slide_bytes`) and span (`runtime.tx_resample`) against what
-the runtime did, and none of them touched at the DECT rate; the DECT-rate
-buffer after it has slid; the three-radio p2p scenario of the benchmark's
+`runtime.dbuf_ring_bytes`, `runtime.dbuf_slide_bytes`) and span
+(`runtime.tx_resample`) against what the runtime did, and none of them
+touched at the DECT rate; the DECT-rate ring after it has wrapped, and held
+to the JAX runtime's sliding buffer (the oracle) over seeded appends; the
+three-radio p2p scenario of the benchmark's
 `p2p_u1b1_sdr` configuration, whose FT sent every other beacon behind its
 radio's write head with 5,120-sample front-end steps; and the port's
 resamplers against the benchmark's plain reference
 (`benchmark/phyref/phy/resampler.py`)."""
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+from dectnrp_tpu.upper.runtime import NodeRuntime as JaxNodeRuntime
 from dectnrp_tpu_torch import config as C
 from dectnrp_tpu_torch.common import trace
 from dectnrp_tpu_torch.phy.resampler import (ResamplerPlan, build_resampler,
@@ -24,13 +28,15 @@ from dectnrp_tpu_torch.simulation.vspace import VNodeConfig, VSpaceConfig
 from dectnrp_tpu_torch.upper.p2p import AssocState
 from dectnrp_tpu_torch.upper.runtime import NodeRuntime
 from dectnrp_tpu_torch.upper.tpoint import Tpoint
+from test_torch_radio_sim import _windows
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = ROOT / "benchmark" / "configs"
 NET = 0x12345678
 FRONT_END = ("runtime.pump_steps", "runtime.pump_skipped_steps",
-             "runtime.dbuf_slide_bytes", "span.runtime.tx_resample.calls")
+             "runtime.dbuf_slide_bytes", "runtime.dbuf_ring_bytes",
+             "span.runtime.tx_resample.calls")
 
 
 def _delta(c0: dict) -> dict:
@@ -38,48 +44,107 @@ def _delta(c0: dict) -> dict:
     return {k: c1[k] - c0[k] for k in FRONT_END}
 
 
-def _listening_node(rate: int, ring: int):
+def _listening_node(rate: int, ring: int, n_ant: int = 1):
     """One radio on noise and a runtime that only listens."""
-    hw = HwSimulator(1, rx_ring_len=ring)
+    hw = HwSimulator(n_ant, rx_ring_len=ring)
     drv = SimDriver(VSpaceConfig(samp_rate=float(rate), spp_len=2048,
                                  noise_var=1e-8),
-                    [hw], [VNodeConfig(1, Trajectory(Position(0, 0, 0)))], "cpu")
+                    [hw], [VNodeConfig(n_ant, Trajectory(Position(0, 0, 0)))],
+                    "cpu")
     return drv, NodeRuntime(hw, Tpoint(), NET, device="cpu")
 
 
 def test_front_end_counts_its_steps_and_slides():
-    """A DECT-rate buffer of 8,192 samples fills in 8 steps of 1,152: the
-    counters follow every step and every slide, and the buffer holds the
-    newest outputs in order."""
+    """A DECT-rate ring of 8,192 samples takes steps of 1,152 over 24
+    ticks and wraps: the counters follow every step and every append (2 A
+    n 8 bytes, nothing slid), and every window of the ring, at both edges
+    and across the wrap, is the concatenated step outputs bit for bit."""
     drv, rt = _listening_node(1_920_000, 8192)
-    outs, slid = [], [0]
-    step, append = rt._rx_step, rt._append_dect
+    outs, grew = [], []
+    step, push = rt._rx_step, rt._dbuf.push
 
     def kept_step(x, hist):
         y, h = step(x, hist)
         outs.append(y.numpy().copy())
         return y, h
 
-    def counted_append(y):
-        cap, n = rt._dbuf.shape[-1], y.shape[-1]
-        if rt._dbuf_filled + n > cap:       # the slide moves cap - drop columns
-            slid[0] += rt._dbuf.shape[0] * (2 * cap - rt._dbuf_filled - n) * 8
-        append(y)
-    rt._rx_step, rt._append_dect = kept_step, counted_append
+    def counted_push(y):
+        c = trace.counters()["runtime.dbuf_ring_bytes"]
+        push(y)
+        grew.append((trace.counters()["runtime.dbuf_ring_bytes"] - c,
+                     2 * y.shape[0] * y.shape[-1] * 8))
+    rt._rx_step, rt._dbuf.push = kept_step, counted_push
     c0 = trace.counters()
     for _ in range(24):
         drv.tick()
         rt.process()
     d = _delta(c0)
-    assert rt.front_end_steps == len(outs) == 24 * 2048 // 1280 > 8
+    assert rt.front_end_steps == len(outs) == len(grew) == 24 * 2048 // 1280
     assert d["runtime.pump_steps"] == rt.front_end_steps
     assert d["runtime.pump_skipped_steps"] == 0
-    assert slid[0] > 0 and d["runtime.dbuf_slide_bytes"] == slid[0]
+    assert all(got == want > 0 for got, want in grew)
+    assert d["runtime.dbuf_ring_bytes"] == sum(want for _, want in grew)
+    assert d["runtime.dbuf_slide_bytes"] == 0
     allout = np.concatenate(outs, -1)
-    assert rt._dbuf_time + rt._dbuf_filled == allout.shape[-1]
-    np.testing.assert_array_equal(rt._dbuf[:, :rt._dbuf_filled],
-                                  allout[:, -rt._dbuf_filled:])
+    cap, lo, hi = 8192, rt._dbuf.start, rt._dect_time_passed
+    assert hi == allout.shape[-1] > 3 * cap and lo == hi - cap
+    for t0, m in _windows(lo, hi, cap, outs[-1].shape[-1]):
+        np.testing.assert_array_equal(rt._get_stream(t0, m),
+                                      allout[:, t0:t0 + m])
     assert rt.stats.chunks > 0
+
+
+# appends into a DECT-rate buffer of capacity C: n > 0 the step outputs of
+# a front end, ("z", n) an overrun skip's n zeros
+DBUF_APPENDS = {
+    "divides": (1024, [256] * 11),
+    "not_divides": (1000, [300, 7, 256, 999, 1, 512, 300, 300, 433]),
+    "one": (64, [1] * 70 + [3, 1]),
+    "cap_minus_1": (500, [499, 499, 1, 499, 3, 499]),
+    "zero_fill_cap": (768, [100, ("z", 768), 5, 768, 333, ("z", 768), 40]),
+    "zero_fill_over": (768, [100, ("z", 2000), 300, ("z", 769), 7, ("z", 5),
+                             ("z", 3 * 768 + 11), 1]),
+}
+
+
+@pytest.mark.parametrize("n_ant", [1, 2])
+@pytest.mark.parametrize("case", sorted(DBUF_APPENDS))
+def test_dect_ring_matches_the_sliding_buffer(case, n_ant):
+    """The runtime's DECT-rate ring against the JAX runtime's sliding buffer
+    (its `_append_dect` / `_get_stream` on a bare object, the oracle) over
+    one seeded sequence of appends and zero-fills: the same times after
+    every append, the same samples in every window, the same refusal, word
+    for word, one sample outside."""
+    cap, appends = DBUF_APPENDS[case]
+    rng = np.random.default_rng(cap + n_ant)
+    _, rt = _listening_node(1_920_000, cap, n_ant)
+    j = SimpleNamespace(plan_tx=rt.plan_tx, _dbuf_time=0, _dbuf_filled=0,
+                        _dbuf=np.zeros((n_ant, cap), np.complex64))
+    for a in appends:
+        if isinstance(a, tuple):
+            n = a[1]
+            x = np.zeros((n_ant, n), np.complex64)
+            rt._dbuf.skip(n)
+        else:
+            n = a
+            x = (rng.standard_normal((n_ant, n))
+                 + 1j * rng.standard_normal((n_ant, n))).astype(np.complex64)
+            rt._dbuf.push(x)
+        JaxNodeRuntime._append_dect(j, x)
+        lo, hi = rt._dbuf.start, rt._dect_time_passed
+        assert (lo, hi) == (j._dbuf_time, j._dbuf_time + j._dbuf_filled)
+        for t0, m in _windows(lo, hi, cap, n):
+            np.testing.assert_array_equal(
+                rt._get_stream(t0, m), JaxNodeRuntime._get_stream(j, t0, m))
+        m = min(n, cap)
+        np.testing.assert_array_equal(rt._get_stream(hi - m, m), x[:, -m:])
+        for t0, m in ((lo - 1, 2), (hi - 1, 2)):
+            with pytest.raises(AssertionError) as mine:
+                rt._get_stream(t0, m)
+            with pytest.raises(AssertionError) as theirs:
+                JaxNodeRuntime._get_stream(j, t0, m)
+            assert str(mine.value) == str(theirs.value)
+    assert rt._dbuf.start > 0                # the ring filled and wrapped
 
 
 def test_dect_rate_touches_no_front_end_counter():
