@@ -1278,7 +1278,7 @@ RT_SCENARIOS = (("basic_simulator", 40, 0), ("rtt_simulator", 40, 3),
 
 def rt_pumps(runtimes):
     """Resampler front-end steps the runtimes ran (0 at the DECT rate)."""
-    return sum(rt.front_end_steps for rt in runtimes)
+    return sum(rt.front_end.steps for rt in runtimes)
 
 
 def rt_tick_stats(tick_ms, spp, rate, n_nodes):
@@ -1356,6 +1356,7 @@ def phase_runtime(dev, card, report):
     from dectnrp_tpu_torch import runtime_check as rc
     from dectnrp_tpu_torch.apps import dectnrp_main
     from dectnrp_tpu_torch.upper.p2p import AssocState
+    from dectnrp_tpu_torch.upper.runtime import ResampledFrontEnd
 
     zero_counts()
     catch = RuntimeCatch()
@@ -1407,7 +1408,7 @@ def phase_runtime(dev, card, report):
                     f"payload, or a TX late ({got})")
             rts = (ex.rt_tx, ex.rt_rx)
             n_tx_resampled = sum(r.stats.tx_packets for r in rts
-                                 if not r.plan_tx.identity)
+                                 if isinstance(r.front_end, ResampledFrontEnd))
             runs[f"exchange_{kind}"] = {
                 **{k: v for k, v in got.items() if k not in ("tx_stats",)},
                 "launches": d, "seconds": time.perf_counter() - t0,
@@ -1581,7 +1582,7 @@ def phase_runtime_stages(dev, card, report):
     tick is the runtime's own host logic. The synchronizations lengthen
     the ticks; their unwrapped time is phase 6d's."""
     from dectnrp_tpu_torch import runtime_check as rc
-    from dectnrp_tpu_torch.upper.runtime import _min_len_psdef
+    from dectnrp_tpu_torch.upper.runtime import ResampledFrontEnd, _min_len_psdef
 
     res = {}
     for kind in ("dect", "sdr"):
@@ -1602,8 +1603,8 @@ def phase_runtime_stages(dev, card, report):
         ex.drv.vspace.tick = timed(ex.drv.vspace.tick, "vspace_tick")
         for rt in (ex.rt_tx, ex.rt_rx):
             rt._sync = timed(rt._sync, "sync")
-            if not rt.plan_tx.identity:
-                rt._rx_step = timed(rt._rx_step, "resample_rx")
+            if isinstance(rt.front_end, ResampledFrontEnd):
+                rt.front_end.step = timed(rt.front_end.step, "resample_rx")
 
             def rx_stream(psdef, *a, rt=rt, orig=rt._rx_stream):
                 pcc = psdef == _min_len_psdef(rt.u, rt.b, psdef.tm_mode_index)

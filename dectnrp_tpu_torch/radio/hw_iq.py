@@ -8,7 +8,7 @@ the reference's USRP RX streamer thread fills `buffer_rx_t`
 IqProducer thread (native/dectnrp_rt.cc iqp_*) which paces a cf32 file into
 the native C++ ring at the SDR sample rate; `NodeRuntime` consumes it
 through the standard `get_rx_stream`/`rx_time_passed` radio interface (and
-resamples SDR->DECT in `_pump` exactly as for `HwSimulator`).
+resamples SDR->DECT in its `front_end` exactly as for `HwSimulator`).
 
 TX side: scheduled bursts are recorded (`tx_bursts`) and optionally appended
 to an output cf32 file — the loop-less analog of timed TX bursts

@@ -30,7 +30,7 @@ from .sections.part4.identity import Identity
 from .sections.part4.plcf import Plcf10, Plcf20
 from .simulation.topology import Position, Trajectory
 from .simulation.vspace import VNodeConfig, VSpaceConfig, draw_tick
-from .upper.runtime import NodeRuntime
+from .upper.runtime import NodeRuntime, ResampledFrontEnd
 from .upper.tpoint import MacHighPhy, MacLowPhy, Tpoint, TxDescriptor
 
 IDENT = Identity(0x12345678, 0x2222, 0x3333)
@@ -180,7 +180,8 @@ def summary(ex: Exchange) -> dict:
         and ex.rt_tx.stats.tx_late == 0
     if ex.kind == "mimo":
         ok = ok and ex.rx_fw.n_ss_seen == 2
-    return {"kind": ex.kind, "resampler_engaged": not ex.rt_rx.plan_tx.identity,
+    engaged = isinstance(ex.rt_rx.front_end, ResampledFrontEnd)
+    return {"kind": ex.kind, "resampler_engaged": engaged,
             "tx_sent": ex.tx_fw.sent, "pdc_decoded": ex.rx_fw.pdc,
             "tb_payload_match": ex.rx_fw.tb_match,
             "n_ss_from_plcf": ex.rx_fw.n_ss_seen,

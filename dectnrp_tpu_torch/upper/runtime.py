@@ -16,14 +16,15 @@ once the PLCF yields the true PacketLength/MCS, the full packet is
 re-demodulated with the right psdef (the reference's two-phase
 demoddecod_rx_pcc / demoddecod_rx_pdc split, rx_synced.cpp:186-436).
 
-Host boundary: the RX ring and the DECT-rate buffer stay on the host as in
-the JAX package. Off the DECT rate the buffer is a mirrored ring
-(`common/ring.MirroredRing`, as the simulated radio's RX ring): a
-front-end step writes only its own samples, twice, and a window is a
-view. A sync chunk, a packet window or a resampler input goes
-to the device once; each PHY call's report comes back in one transfer
-(`_host`). The PHY modules are built once per (arguments, device)
-(`_module`): the builders themselves are not cached.
+Front end: `NodeRuntime` meets its radio only at the DECT rate, through
+`front_end`, the one object that knows whether a resampler sits between:
+`IdentityFrontEnd` (the radio itself) or `ResampledFrontEnd` (a DECT-rate
+`common/ring.MirroredRing` on the host). The benchmark's SDR loop and its
+tests reach it through older names, kept in one block of `NodeRuntime`.
+
+Host boundary: a sync chunk, a packet window or a resampler input goes to
+the device once, each PHY call's report comes back in one transfer
+(`_host`), and each PHY module is built once per (arguments, device).
 
 Tracing (common/trace.py): `runtime.process` spans a call, with a child
 span for each stage (`runtime.pump`, `runtime.sync` a chunk,
@@ -31,12 +32,11 @@ span for each stage (`runtime.pump`, `runtime.sync` a chunk,
 `runtime.tx_resample`) and `firmware.<callback>` around each firmware
 call; the spans of one packet carry its `t_global`. Every copy to the
 device and read back is counted (`xfer.*`), and so is a PHY module built
-(`runtime.module_builds`). The resampler front end counts its steps
-(`runtime.pump_steps`; those an overrun skips under
-`runtime.pump_skipped_steps`) and the bytes written into its DECT-rate
-ring, mirror included (`runtime.dbuf_ring_bytes`); at the DECT rate all
-three stay 0. `runtime.dbuf_slide_bytes` stays registered at 0: no buffer
-slides.
+(`runtime.module_builds`). The resampled front end counts its steps
+(`runtime.pump_steps`, overrun skips `runtime.pump_skipped_steps`) and
+the bytes written into its ring (`runtime.dbuf_ring_bytes`, mirror
+included); at the DECT rate these and its spans stay 0, as does
+`runtime.dbuf_slide_bytes` always.
 
 Application layer: an `app_server` (application/socket_app.SocketServer or
 anything with `read_all()`) is drained into `work_application` each
@@ -47,6 +47,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
+from operator import attrgetter
 
 import numpy as np
 import torch
@@ -88,6 +89,12 @@ def _host(*parts: torch.Tensor) -> np.ndarray:
     return flat.cpu().numpy()
 
 
+def _to_dev(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    x = np.ascontiguousarray(x)
+    h2d(x.nbytes)
+    return torch.from_numpy(x).to(device)
+
+
 @lru_cache(maxsize=None)
 def _min_len_psdef(u: int, b: int, tm_mode_index: int) -> PacketSizesDef:
     """Smallest valid packet of this geometry (PCC cells are identical)."""
@@ -114,54 +121,152 @@ class RuntimeStats:
     irregular_calls: int = 0
 
 
-class _DectLower:
-    """hw facade exposing a DECT-rate clock to the firmware.
+class IdentityFrontEnd:
+    """The front end of a radio at the DECT rate: the radio itself."""
 
-    When the radio runs at an SDR rate (reference: hw picks e.g. 1.92 Ms/s
-    for a 1.728 Ms/s DECT rate, phy_config.cpp:32-67), all firmware/MAC times
-    stay in DECT-rate sample counts (part-3 sample durations are DECT-rate
-    quantities); the runtime converts at the hw boundary. Timed-command and
-    PPS times are converted here; everything else forwards to the hw.
-    """
+    steps = 0
+    start = property(attrgetter("hw.rx_time"))
+    end = property(attrgetter("hw.rx_time_passed"))
 
-    def __init__(self, hw, rt: "NodeRuntime"):
-        self._hw = hw
-        self._rt = rt
+    def __init__(self, hw):
+        self.hw = self.lower = hw
+
+    def window(self, t0: int, n: int) -> np.ndarray:
+        return self.hw.get_rx_stream(t0, n)
+
+    def pump(self) -> None:
+        pass
+
+    def drained(self) -> bool:
+        return True
+
+    def to_hw(self, x):
+        return x
+
+    to_dect = to_radio = to_hw
+
+
+class ResampledFrontEnd:
+    """The front end of a radio off the DECT rate (phy_config.cpp:32-67):
+    rx_pacer's resample_until_nto (rx_pacer.cpp:227-295), tx.cpp's TX
+    resampling, and the firmware's `lower`, converting the radio's times."""
+
+    start = property(attrgetter("ring.start"))
+    end = property(attrgetter("ring.end"))
+
+    def __init__(self, hw, plan_tx: ResamplerPlan, plan_rx: ResamplerPlan,
+                 device: torch.device):
+        self.hw, self.plan_tx, self.plan_rx = hw, plan_tx, plan_rx
+        self.lower = self
+        self.device, self._dev = device, str(device)
+        # hw samples per step; the ring (so sync and irregular callbacks)
+        # lags the radio by up to a step: steps of 2.67 ms (512 L) made a p2p
+        # FT's beacon callback, 2.5 ms before air time, late every 2nd period
+        self.chunk = 128 * plan_tx.L
+        # looked up at each step, so a wrapper set later takes effect
+        self.step = _module("resampler_stream", (plan_rx, self.chunk), self._dev)
+        self._d_in = stream_input_lag(plan_rx)
+        self._hist = torch.zeros((hw.n_ant, self.step.H), dtype=torch.complex64,
+                                 device=device)
+        self.origin: int | None = None         # hw time of feed start
+        self.consumed = 0                      # hw time of the next step's input
+        self.ring = MirroredRing(hw.n_ant, getattr(hw, "rx_ring_len", 1 << 20),
+                                 "runtime.dbuf_ring_bytes", "dect buffer")
+
+    def window(self, t0: int, n: int) -> np.ndarray:
+        return self.ring.window(t0, n)
+
+    def to_hw(self, t_d: int) -> int:
+        """DECT-rate sample count -> hw sample count (same instant)."""
+        L, M = self.plan_rx.L, self.plan_rx.M          # dect k ~ hw k*M/L - D
+        return int(round(t_d * M / L)) - self._d_in + (self.origin or 0)
+
+    def to_dect(self, t_h: int) -> int:
+        L, M = self.plan_rx.L, self.plan_rx.M
+        return int(round((t_h - (self.origin or 0) + self._d_in) * L / M))
+
+    def pump(self) -> None:
+        """Resample newly received hw samples into the DECT-rate ring."""
+        with span("runtime.pump"):
+            if self.origin is None:
+                self.origin = self.consumed = self.hw.rx_time
+            # one call resamples what had arrived when it began, so a real-IQ
+            # radio that outruns the runtime cannot keep it from returning (a
+            # free-running stream is consumed in the same steps over more calls)
+            end = self.hw.rx_time_passed
+            while self.consumed + self.chunk <= end:
+                try:
+                    x = self.hw.get_rx_stream(self.consumed, self.chunk)
+                except ValueError:
+                    # ring overflow: the producer lapped this reader. Skip to
+                    # its oldest sample and zero-fill the lost span, so the
+                    # time mapping holds (reference restream, hw_usrp.cpp:
+                    # 1093-1219: ring time recomputed from md.time_spec)
+                    oldest = self.hw.rx_time
+                    skip = max(1, -(-(oldest - self.consumed) // self.chunk))
+                    out_per_chunk = self.chunk * self.plan_rx.L // self.plan_rx.M
+                    self.consumed += skip * self.chunk
+                    count("runtime.pump_skipped_steps", skip)
+                    self._hist = torch.zeros_like(self._hist)
+                    self.ring.skip(skip * out_per_chunk)
+                    continue
+                y, self._hist = self.step(_to_dev(x, self.device), self._hist)
+                self.consumed += self.chunk
+                count("runtime.pump_steps")
+                d2h(y.numel() * y.element_size())
+                self.ring.push(y.cpu().numpy())
+
+    @property
+    def steps(self) -> int:
+        """Steps taken so far, overrun skips included."""
+        return (self.consumed - (self.origin or 0)) // self.chunk
+
+    def drained(self) -> bool:
+        """Whether every whole step the radio holds is resampled."""
+        return self.consumed + self.chunk > self.hw.rx_time_passed
+
+    def to_radio(self, iq: torch.Tensor) -> torch.Tensor:
+        with span("runtime.tx_resample"):
+            return _module("resampler", (self.plan_tx, iq.shape[-1]),
+                           self._dev)(iq)
 
     @property
     def rx_time(self) -> int:
-        return self._rt._hw_to_dect(self._hw.rx_time)
+        return self.to_dect(self.hw.rx_time)
 
-    @property
-    def rx_time_passed(self) -> int:
-        return self._rt._dect_time_passed
+    rx_time_passed = end
 
     def set_command_time(self, time: int = 0) -> None:
-        self._hw.set_command_time(self._rt._dect_to_hw(time) if time > 0 else time)
+        self.hw.set_command_time(self.to_hw(time) if time > 0 else time)
 
     def pps_set_full_sec_at_next_pps(self) -> int:
-        return self._rt._hw_to_dect(self._hw.pps_set_full_sec_at_next_pps())
+        return self.to_dect(self.hw.pps_set_full_sec_at_next_pps())
 
     @property
     def tx_earliest(self) -> int:
-        return self._rt._hw_to_dect(self._hw.tx_earliest)
+        return self.to_dect(self.hw.tx_earliest)
 
     def __getattr__(self, name):
-        return getattr(self._hw, name)
+        return getattr(self.hw, name)
+
+
+def _delegated(name: str) -> property:
+    """A NodeRuntime name read and set on its front end."""
+    return property(lambda rt: getattr(rt.front_end, name),
+                    lambda rt, value: setattr(rt.front_end, name, value))
 
 
 class NodeRuntime:
     """Per-node MAC/PHY event loop over a radio's RX ring (HwSimulator,
-    HwIqStream, HwIqSocket), its PHY on `device`.
+    HwIqStream, HwIqSocket), its PHY on `device`. hw_samp_rate: the radio's
+    rate; off the DECT rate (1.728 MHz * u * b) `front_end` resamples. All
+    runtime and firmware times are DECT-rate sample counts."""
 
-    hw_samp_rate: actual radio rate. When it differs from the DECT rate
-    (1.728 MHz * u * b), a streaming polyphase front end converts the hw-rate
-    ring into a local DECT-rate buffer before sync/demod (reference rx_pacer
-    resample_until_nto, rx_pacer.cpp:227-295 / sync_chunk.cpp:43-50), and TX
-    packets are upsampled L/M before scheduling (tx.cpp
-    run_resampling_and_freq_shift). All runtime/firmware times are DECT-rate
-    sample counts; conversion happens only at the hw boundary.
-    """
+    # the benchmark's SDR loop and its tests read and replace these (and
+    # plan_tx, plan_rx, _sync, _dev, hw): the port itself uses `front_end`
+    _rx_step = _delegated("step")
+    _hw_consumed = _delegated("consumed")
+    _chunk_pump = _delegated("chunk")
 
     def __init__(self, hw, tpoint: Tpoint, network_id: int,
                  u: int = 1, b: int = 1,
@@ -209,126 +314,24 @@ class NodeRuntime:
             from ..common.json_export import JsonExport
             self.json_export = JsonExport(json_export_dir, prefix="packets")
 
-        # --- resampling front end (rx_pacer analog)
+        # --- the front end (rx_pacer analog)
         self.dect_rate = 1_728_000 * u * b
         hw_rate = hw_samp_rate or getattr(hw, "samp_rate", 0) or self.dect_rate
         L, M = get_resampler_fraction(self.dect_rate, hw_rate)
         self.plan_tx = ResamplerPlan(L, M)             # dect -> hw
         self.plan_rx = ResamplerPlan(M, L)             # hw -> dect
-        if self.plan_tx.identity:
-            tpoint.lower = hw
-        else:
-            tpoint.lower = _DectLower(hw, self)
-            # hw samples per step. The DECT-rate buffer, and with it the
-            # sync and the firmware's irregular callbacks, lag the radio by
-            # up to a step more than at the DECT rate: steps of 2.67 ms at
-            # 1.92 Ms/s (512 L) made a p2p FT's beacon callback, 12 subslots
-            # (2.5 ms) ahead of its air time, fire after it in every other
-            # beacon period; steps of 0.67 ms do not
-            self._chunk_pump = 128 * L
-            self._rx_step = _module("resampler_stream",
-                                    (self.plan_rx, self._chunk_pump), self._dev)
-            self._rx_H = self._rx_step.H
-            self._d_in = stream_input_lag(self.plan_rx)
-            self._hist = None
-            self._hw_origin: int | None = None         # hw time of feed start
-            self._hw_consumed = 0
-            self._dbuf = MirroredRing(hw.n_ant,
-                                      getattr(hw, "rx_ring_len", 1 << 20),
-                                      "runtime.dbuf_ring_bytes", "dect buffer")
-
-    def _to_dev(self, x: np.ndarray) -> torch.Tensor:
-        x = np.ascontiguousarray(x)
-        h2d(x.nbytes)
-        return torch.from_numpy(x).to(self.device)
-
-    # -------------------------------------------------------- time domains
-    def _dect_to_hw(self, t_d: int) -> int:
-        """DECT-rate sample count -> hw sample count (same instant)."""
-        if self.plan_tx.identity:
-            return t_d
-        L, M = self.plan_rx.L, self.plan_rx.M          # dect k ~ hw k*M/L - D
-        return int(round(t_d * M / L)) - self._d_in + (self._hw_origin or 0)
-
-    def _hw_to_dect(self, t_h: int) -> int:
-        if self.plan_tx.identity:
-            return t_h
-        L, M = self.plan_rx.L, self.plan_rx.M
-        return int(round((t_h - (self._hw_origin or 0) + self._d_in) * L / M))
-
-    @property
-    def _dect_time_passed(self) -> int:
-        if self.plan_tx.identity:
-            return self.hw.rx_time_passed
-        return self._dbuf.end
-
-    def _get_stream(self, t0: int, n: int) -> np.ndarray:
-        """[A, n] DECT-rate samples for window [t0, t0+n)."""
-        if self.plan_tx.identity:
-            return self.hw.get_rx_stream(t0, n)
-        return self._dbuf.window(t0, n)
-
-    def _pump(self) -> None:
-        """Resample newly received hw samples into the DECT-rate buffer."""
-        if self.plan_tx.identity:
-            return
-        with span("runtime.pump"):
-            if self._hw_origin is None:
-                self._hw_origin = self.hw.rx_time
-                self._hw_consumed = self._hw_origin
-                self._hist = torch.zeros((self.hw.n_ant, self._rx_H),
-                                         dtype=torch.complex64, device=self.device)
-            # one call resamples what had arrived when it began: a real-IQ radio
-            # that outruns the runtime must not keep the call from returning
-            # (lock-step radios do not move during a call; a free-running
-            # stream is consumed in the same steps over more calls)
-            end = self.hw.rx_time_passed
-            while self._hw_consumed + self._chunk_pump <= end:
-                try:
-                    x = self.hw.get_rx_stream(self._hw_consumed, self._chunk_pump)
-                except ValueError:
-                    # ring overflow: the producer lapped this reader. Skip to the
-                    # oldest sample still in the ring and zero-fill the lost span
-                    # so the hw<->dect time mapping stays intact (reference
-                    # overflow recovery: the recv loop recomputes ring time from
-                    # md.time_spec and restreams, hw_usrp.cpp:1093-1219)
-                    oldest = self.hw.rx_time
-                    skip = max(1, -(-(oldest - self._hw_consumed)
-                                    // self._chunk_pump))
-                    out_per_chunk = self._chunk_pump * self.plan_rx.L \
-                        // self.plan_rx.M
-                    self._hw_consumed += skip * self._chunk_pump
-                    count("runtime.pump_skipped_steps", skip)
-                    self._hist = torch.zeros_like(self._hist)
-                    self._dbuf.skip(skip * out_per_chunk)
-                    continue
-                y, self._hist = self._rx_step(self._to_dev(x), self._hist)
-                self._hw_consumed += self._chunk_pump
-                count("runtime.pump_steps")
-                d2h(y.numel() * y.element_size())
-                self._dbuf.push(y.cpu().numpy())
-
-    @property
-    def front_end_steps(self) -> int:
-        """Resampler front-end steps taken so far, overrun skips included
-        (0 at the DECT rate)."""
-        if self.plan_tx.identity or self._hw_origin is None:
-            return 0
-        return (self._hw_consumed - self._hw_origin) // self._chunk_pump
+        self.front_end = IdentityFrontEnd(hw) if self.plan_tx.identity else \
+            ResampledFrontEnd(hw, self.plan_tx, self.plan_rx, self.device)
+        tpoint.lower = self.front_end.lower
 
     def caught_up(self, hw_eof: bool) -> bool:
         """Whether a stream that had ended when the last process() began
-        (`hw_eof`, read before that call) is all consumed: every whole
-        front-end step resampled, every whole chunk synced, no detection
-        awaiting its decode. One process() takes only what had arrived when
-        it began, so the producer's EOF alone does not say so."""
-        if not hw_eof:
-            return False
-        if not self.plan_tx.identity and \
-                self._hw_consumed + self._chunk_pump <= self.hw.rx_time_passed:
-            return False
-        return (self._processed + self.chunk_len + self.overlap
-                > self._dect_time_passed
+        (`hw_eof`, read before it) is all consumed: every whole front-end
+        step resampled, every whole chunk synced, no detection awaiting its
+        decode (a process() takes only what had arrived when it began)."""
+        return (hw_eof and self.front_end.drained()
+                and self._processed + self.chunk_len + self.overlap
+                > self.front_end.end
                 and not self._pending and not self._pending_pdc)
 
     # ------------------------------------------------------------------ TX
@@ -345,18 +348,15 @@ class NodeRuntime:
                     tb = td.tb_bits if td.tb_bits is not None else \
                         np.zeros(ps.N_TB_bits, np.uint8)
                     # PLCF and TB bits to the device in one transfer
-                    bits = self._to_dev(np.concatenate(
-                        [np.asarray(plcf_bits), np.asarray(tb)]).astype(np.uint8))[None]
+                    bits = _to_dev(np.concatenate(
+                        [np.asarray(plcf_bits), np.asarray(tb)]).astype(np.uint8),
+                        self.device)[None]
                     fl = torch.zeros((1,), dtype=torch.bool, device=self.device)
-                    iq = tx(bits[:, :n_bits], bits[:, n_bits:], fl, fl)[0]
-                    if not self.plan_tx.identity:
-                        with span("runtime.tx_resample"):
-                            iq = _module("resampler",
-                                         (self.plan_tx, iq.shape[-1]),
-                                         self._dev)(iq)
+                    iq = self.front_end.to_radio(
+                        tx(bits[:, :n_bits], bits[:, n_bits:], fl, fl)[0])
                     d2h(iq.numel() * iq.element_size())
                     iq = iq.cpu().numpy()
-                    t_hw = self._dect_to_hw(td.tx_time)
+                    t_hw = self.front_end.to_hw(td.tx_time)
                     if t_hw < self.hw.rx_time_passed:
                         # behind the radio write head: the burst head is lost
                         # (reference: UHD late-command error accounting)
@@ -404,7 +404,7 @@ class NodeRuntime:
         dev = self.device
         h2d(4)                      # the cfo and the noise variance below
         h2d(4)
-        return rxs(self._to_dev(win[None]), torch.zeros(1, dtype=torch.int64, device=dev),
+        return rxs(_to_dev(win[None], dev), torch.zeros(1, dtype=torch.int64, device=dev),
                    torch.tensor([cfo], dtype=torch.float32, device=dev),
                    torch.tensor(np.float32(nv), device=dev))
 
@@ -426,11 +426,11 @@ class NodeRuntime:
         # --- PCC stage on the minimum-length packet window
         ps_min = _min_len_psdef(self.u, self.b, tm)
         n_min = get_packet_sizes(ps_min).N_samples_packet
-        if t_global + n_min > self._dect_time_passed:
+        if t_global + n_min > self.front_end.end:
             return False
         with span("runtime.pcc", t_global):
             try:
-                win = self._get_stream(t_global, n_min)
+                win = self.front_end.window(t_global, n_min)
             except ValueError:
                 # identity-plan ring overrun between the time check and the
                 # read: the samples are gone; drop the detection (reference
@@ -488,10 +488,10 @@ class NodeRuntime:
         """PDC stage with the PLCF-declared psdef; False = window not in yet."""
         psdef = maclow.psdef
         ps = get_packet_sizes(psdef)
-        if t_global + ps.N_samples_packet > self._dect_time_passed:
+        if t_global + ps.N_samples_packet > self.front_end.end:
             return False
         try:
-            win = self._get_stream(t_global, ps.N_samples_packet)
+            win = self.front_end.window(t_global, ps.N_samples_packet)
         except ValueError:
             self._drop_pdc(phy_maclow, maclow)
             return True
@@ -540,10 +540,10 @@ class NodeRuntime:
     def process(self) -> None:
         """Advance sync/decode/callbacks as far as received samples allow."""
         with span("runtime.process"):
-            self._pump()
+            self.front_end.pump()
             if not self._started:
                 self._started = True
-                now_d = self._hw_to_dect(self.hw.rx_time)
+                now_d = self.front_end.to_dect(self.hw.rx_time)
                 irr = self._firmware("start", None, now_d)
                 if irr.call_at is not None:
                     self._irregular.append((irr.call_at, irr.handle))
@@ -563,8 +563,7 @@ class NodeRuntime:
 
             # retry stages waiting for more samples: PDC first (older packets,
             # FIFO job order), then detections awaiting their PCC window
-            window_start = self._dbuf.start if not self.plan_tx.identity \
-                else self.hw.rx_time
+            window_start = self.front_end.start
             still_pdc = []
             for args in self._pending_pdc:
                 if args[0] < window_start:
@@ -582,23 +581,23 @@ class NodeRuntime:
                     still.append(args)
             self._pending = still
 
-            avail = self._dect_time_passed      # as for _pump: what has arrived
+            avail = self.front_end.end      # as for the pump: what has arrived
             while self._processed + self.chunk_len + self.overlap <= avail:
                 if self._processed < window_start:
                     # overrun skip moved the window past the sync cursor
                     self._processed = window_start
                 t0 = self._processed
                 try:
-                    chunk = self._get_stream(t0, self.chunk_len + self.overlap)
+                    chunk = self.front_end.window(t0, self.chunk_len + self.overlap)
                 except ValueError:
                     # identity-plan ring overflow: sync fell behind the producer;
                     # skip forward to the oldest sample still available (the lost
                     # span is unrecoverable, reference restream on overflow)
                     self._processed = max(self._processed + self.chunk_len,
-                                          self.hw.rx_time)
+                                          self.front_end.start)
                     continue
                 with span("runtime.sync"):
-                    rep = self._sync(self._to_dev(chunk[None]))
+                    rep = self._sync(_to_dev(chunk[None], self.device))
                     self.stats.chunks += 1
                     # [field, peak]: detected, t_fine, cfo, n_eff_tx, metric, rms
                     det, tf, cfo, n_eff, met, rms = _host(

@@ -558,7 +558,7 @@ def test_iq_file_card_matches_cpu(dev, tmp_path):
     for a, b in zip(fw.tbs, fw_c.tbs, strict=True):
         np.testing.assert_array_equal(a, b)
     assert n[0] == rt.stats.chunks
-    assert n[1] == rt.front_end_steps
+    assert n[1] == rt.front_end.steps
     assert n[2] == n[3] > 0, n
 
 

@@ -22,7 +22,7 @@ from dectnrp_tpu_torch.common.native import native_available
 from dectnrp_tpu_torch.iq_check import (IDENT, RATE, drain, ingress_stream,
                                         on_free_port, packet_bursts, run_file)
 from dectnrp_tpu_torch.runtime_check import RxCounter
-from dectnrp_tpu_torch.upper.runtime import NodeRuntime
+from dectnrp_tpu_torch.upper.runtime import NodeRuntime, ResampledFrontEnd
 
 torch.set_num_threads(1)
 
@@ -74,7 +74,7 @@ def record_file(tmp_path):
 def test_iq_file_ingress_decodes(tmp_path):
     path, payloads, total = record_file(tmp_path)
     hw, rt, fw = run_file(path, payloads, "cpu")
-    assert not rt.plan_tx.identity          # 10/9 resampler engaged
+    assert isinstance(rt.front_end, ResampledFrontEnd)     # 10/9 resampler
     assert hw.eof
     assert hw.rx_time_passed >= total - 2048    # producer delivered the file
     assert fw.tb_match == len(payloads), \

@@ -45,7 +45,7 @@ def test_p2p_association_and_data(samp_rate, n_ticks):
     drv = SimDriver(vcfg, hws, nodes, "cpu")
     rt_ft = NodeRuntime(hws[0], ft, NET, device="cpu")
     rt_pt = NodeRuntime(hws[1], pt, NET, device="cpu")
-    assert rt_ft.plan_tx.identity == (samp_rate == 1_728_000)
+    assert (ft.lower is hws[0]) == (samp_rate == 1_728_000)
 
     ul_msgs = [bytes([i] * 24) for i in range(1, 4)]
     dl_msgs = [bytes([0x80 + i] * 24) for i in range(1, 4)]

@@ -215,12 +215,12 @@ def test_pcc_first_fires_before_packet_tail():
             self.pcc_at = self.pdc_at = self.pkt_t0 = None
 
         def work_pcc(self, phy_maclow):
-            self.pcc_at = self.rt_ref[0]._dect_time_passed
+            self.pcc_at = self.rt_ref[0].front_end.end
             self.pkt_t0 = phy_maclow.sync_report.fine_peak_time
             return super().work_pcc(phy_maclow)
 
         def work_pdc(self, phy_machigh):
-            self.pdc_at = self.rt_ref[0]._dect_time_passed
+            self.pdc_at = self.rt_ref[0].front_end.end
             return super().work_pdc(phy_machigh)
 
     hws, drv = _two_nodes()
@@ -354,7 +354,7 @@ def test_process_returns_over_a_radio_that_outruns_it(rate):
             assert rt._processed + rt.overlap <= head \
                 < rt._processed + rt.chunk_len + rt.overlap
         else:                           # 9/10 front end, 1,280-sample steps
-            assert rt._hw_consumed == head
+            assert rt.front_end.consumed == head
     assert rt.stats.chunks > 0
 
 
@@ -446,7 +446,7 @@ def _port_front_end_step(jrt) -> None:
     port = NodeRuntime(HwSimulator(1), Tpoint(), IDENT.network_id,
                        hw_samp_rate=jrt.dect_rate * jrt.plan_tx.L
                        // jrt.plan_tx.M, device="cpu")
-    jrt._chunk_pump = port._chunk_pump
+    jrt._chunk_pump = port.front_end.chunk
     step, jrt._rx_H = j_stream(jrt.plan_rx, jrt._chunk_pump)
     jrt._rx_step = cwrap_cached(step)
 
@@ -490,7 +490,7 @@ def test_entry_points_default_to_the_card():
         'default="cuda"' in inspect.getsource(dectnrp_main.run)
     ex = rc.build("sdr", "cpu")
     for rt in (ex.rt_tx, ex.rt_rx):
-        for m in (rt._sync, rt._rx_step):
+        for m in (rt._sync, rt.front_end.step):
             bufs = list(m.buffers())
             assert bufs and all(b.device.type == "cpu" for b in bufs), type(m)
     assert ex.drv.vspace.generator.device.type == "cpu"

@@ -1,5 +1,7 @@
-"""The runtime's resampler front end on radios at 1.92 Ms/s, on the CPU:
-its counters (`runtime.pump_steps`, `runtime.pump_skipped_steps`,
+"""The runtime's front end (`NodeRuntime.front_end`) on the CPU: its two
+forms at 1.728 and 1.92 Ms/s; the resampled form's clock mappings and
+firmware view held to the JAX runtime's; on radios at 1.92 Ms/s its
+counters (`runtime.pump_steps`, `runtime.pump_skipped_steps`,
 `runtime.dbuf_ring_bytes`, `runtime.dbuf_slide_bytes`) and span
 (`runtime.tx_resample`) against what the runtime did, and none of them
 touched at the DECT rate; the DECT-rate ring after it has wrapped, and held
@@ -26,7 +28,8 @@ from dectnrp_tpu_torch.sections.part4.identity import Identity
 from dectnrp_tpu_torch.simulation.topology import Position, Trajectory
 from dectnrp_tpu_torch.simulation.vspace import VNodeConfig, VSpaceConfig
 from dectnrp_tpu_torch.upper.p2p import AssocState
-from dectnrp_tpu_torch.upper.runtime import NodeRuntime
+from dectnrp_tpu_torch.upper.runtime import (IdentityFrontEnd, NodeRuntime,
+                                              ResampledFrontEnd)
 from dectnrp_tpu_torch.upper.tpoint import Tpoint
 from test_torch_radio_sim import _windows
 
@@ -60,8 +63,9 @@ def test_front_end_counts_its_steps_and_slides():
     n 8 bytes, nothing slid), and every window of the ring, at both edges
     and across the wrap, is the concatenated step outputs bit for bit."""
     drv, rt = _listening_node(1_920_000, 8192)
+    fe = rt.front_end
     outs, grew = [], []
-    step, push = rt._rx_step, rt._dbuf.push
+    step, push = fe.step, fe.ring.push
 
     def kept_step(x, hist):
         y, h = step(x, hist)
@@ -73,25 +77,112 @@ def test_front_end_counts_its_steps_and_slides():
         push(y)
         grew.append((trace.counters()["runtime.dbuf_ring_bytes"] - c,
                      2 * y.shape[0] * y.shape[-1] * 8))
-    rt._rx_step, rt._dbuf.push = kept_step, counted_push
+    fe.step, fe.ring.push = kept_step, counted_push
     c0 = trace.counters()
     for _ in range(24):
         drv.tick()
         rt.process()
     d = _delta(c0)
-    assert rt.front_end_steps == len(outs) == len(grew) == 24 * 2048 // 1280
-    assert d["runtime.pump_steps"] == rt.front_end_steps
+    assert fe.steps == len(outs) == len(grew) == 24 * 2048 // 1280
+    assert d["runtime.pump_steps"] == fe.steps
     assert d["runtime.pump_skipped_steps"] == 0
     assert all(got == want > 0 for got, want in grew)
     assert d["runtime.dbuf_ring_bytes"] == sum(want for _, want in grew)
     assert d["runtime.dbuf_slide_bytes"] == 0
     allout = np.concatenate(outs, -1)
-    cap, lo, hi = 8192, rt._dbuf.start, rt._dect_time_passed
+    cap, lo, hi = 8192, fe.start, fe.end
     assert hi == allout.shape[-1] > 3 * cap and lo == hi - cap
     for t0, m in _windows(lo, hi, cap, outs[-1].shape[-1]):
-        np.testing.assert_array_equal(rt._get_stream(t0, m),
-                                      allout[:, t0:t0 + m])
+        np.testing.assert_array_equal(fe.window(t0, m), allout[:, t0:t0 + m])
     assert rt.stats.chunks > 0
+
+
+@pytest.mark.parametrize("rate", [1_728_000, 1_920_000], ids=["dect", "sdr"])
+def test_front_end_forms(rate):
+    """The front end in its two forms after 12 ticks: at the DECT rate the
+    radio's own clock and read, no step, no pump span, the identity
+    conversions, and the firmware holds the radio; off it the DECT-rate
+    ring's clock and read, the steps the counter saw, and the firmware holds
+    the front end."""
+    drv, rt = _listening_node(rate, 8192)
+    fe, hw = rt.front_end, rt.hw
+    c0 = trace.counters()
+    for _ in range(12):
+        drv.tick()
+        rt.process()
+    c1 = trace.counters()
+    pumped, steps = (c1[k] - c0[k] for k in ("span.runtime.pump.calls",
+                                             "runtime.pump_steps"))
+    if rate == 1_728_000:
+        src = hw.rx_time, hw.rx_time_passed, hw.get_rx_stream
+        assert isinstance(fe, IdentityFrontEnd) and rt.tpoint.lower is hw
+        assert fe.steps == steps == pumped == 0
+        x = torch.ones(3)
+        assert fe.to_hw(12_345) == fe.to_dect(12_345) == 12_345
+        assert fe.to_radio(x) is x
+    else:
+        src = fe.ring.start, fe.ring.end, fe.ring.window
+        assert isinstance(fe, ResampledFrontEnd) and rt.tpoint.lower is fe
+        assert fe.steps == steps == 12 * 2048 // 1280 and pumped == 12
+    assert (fe.start, fe.end) == src[:2] and fe.end - fe.start == 8192
+    for t0, m in ((fe.start, 100), (fe.end - 2048, 2048)):
+        np.testing.assert_array_equal(fe.window(t0, m), src[2](t0, m))
+    assert fe.drained()
+
+
+class _Clock:
+    """A radio whose clock the test sets, read by both packages' runtimes."""
+    n_ant, rx_ring_len, samp_rate = 1, 4096, 1_920_000
+
+    def __init__(self):
+        self.rx_time = self.rx_time_passed = self.tx_earliest = self.pps = 0
+        self.commands = []
+
+    def pps_set_full_sec_at_next_pps(self) -> int:
+        return self.pps
+
+    def set_command_time(self, time: int = 0) -> None:
+        self.commands.append(time)
+
+
+def test_resampled_clock_matches_jax():
+    """The resampled front end's two clock mappings and the firmware's view
+    of the radio (`lower`) against the JAX runtime's `_dect_to_hw`,
+    `_hw_to_dect` and `_DectLower` over one radio at 100 states, the first
+    ten before the first pump sets the origin; the front end forwards the
+    radio's other names."""
+    from dectnrp_tpu.upper.tpoint import Tpoint as JTpoint
+
+    clock, rng = _Clock(), np.random.default_rng(2 ** 31 + 23)
+    rt = NodeRuntime(clock, Tpoint(), NET, device="cpu")
+    jrt = JaxNodeRuntime(clock, JTpoint(), NET)
+    fe, lower, jlower = rt.front_end, rt.tpoint.lower, jrt.tpoint.lower
+    assert lower is fe and type(jlower).__name__ == "_DectLower"
+    assert fe.origin is None and fe.samp_rate == clock.samp_rate
+    for k in range(100):
+        if k == 10:          # a radio at rx_time with nothing to resample
+            clock.rx_time = clock.rx_time_passed = int(rng.integers(1, 10 ** 6))
+            fe.pump()
+            jrt._pump()
+            assert fe.origin == jrt._hw_origin == clock.rx_time
+        n = int(rng.integers(0, 5000))
+        fe.ring.skip(n)
+        JaxNodeRuntime._append_dect(jrt, np.zeros((1, n), np.complex64))
+        clock.rx_time, clock.tx_earliest, clock.pps = (
+            int(v) for v in rng.integers(0, 10 ** 9, 3))
+        for t in rng.integers(0, 10 ** 9, 4):
+            assert fe.to_hw(int(t)) == jrt._dect_to_hw(int(t)), (k, t)
+            assert fe.to_dect(int(t)) == jrt._hw_to_dect(int(t)), (k, t)
+        for name in ("rx_time", "rx_time_passed", "tx_earliest"):
+            assert getattr(lower, name) == getattr(jlower, name), (k, name)
+        assert lower.rx_time_passed == fe.end
+        assert lower.pps_set_full_sec_at_next_pps() == \
+            jlower.pps_set_full_sec_at_next_pps()
+        t = int(rng.integers(0, 10 ** 9)) if k % 3 else 0
+        lower.set_command_time(t)
+        jlower.set_command_time(t)
+        assert clock.commands[-2] == clock.commands[-1], (k, t)
+    assert fe.steps == 0
 
 
 # appends into a DECT-rate buffer of capacity C: n > 0 the step outputs of
@@ -118,33 +209,34 @@ def test_dect_ring_matches_the_sliding_buffer(case, n_ant):
     cap, appends = DBUF_APPENDS[case]
     rng = np.random.default_rng(cap + n_ant)
     _, rt = _listening_node(1_920_000, cap, n_ant)
-    j = SimpleNamespace(plan_tx=rt.plan_tx, _dbuf_time=0, _dbuf_filled=0,
+    fe = rt.front_end
+    j = SimpleNamespace(plan_tx=fe.plan_tx, _dbuf_time=0, _dbuf_filled=0,
                         _dbuf=np.zeros((n_ant, cap), np.complex64))
     for a in appends:
         if isinstance(a, tuple):
             n = a[1]
             x = np.zeros((n_ant, n), np.complex64)
-            rt._dbuf.skip(n)
+            fe.ring.skip(n)
         else:
             n = a
             x = (rng.standard_normal((n_ant, n))
                  + 1j * rng.standard_normal((n_ant, n))).astype(np.complex64)
-            rt._dbuf.push(x)
+            fe.ring.push(x)
         JaxNodeRuntime._append_dect(j, x)
-        lo, hi = rt._dbuf.start, rt._dect_time_passed
+        lo, hi = fe.start, fe.end
         assert (lo, hi) == (j._dbuf_time, j._dbuf_time + j._dbuf_filled)
         for t0, m in _windows(lo, hi, cap, n):
             np.testing.assert_array_equal(
-                rt._get_stream(t0, m), JaxNodeRuntime._get_stream(j, t0, m))
+                fe.window(t0, m), JaxNodeRuntime._get_stream(j, t0, m))
         m = min(n, cap)
-        np.testing.assert_array_equal(rt._get_stream(hi - m, m), x[:, -m:])
+        np.testing.assert_array_equal(fe.window(hi - m, m), x[:, -m:])
         for t0, m in ((lo - 1, 2), (hi - 1, 2)):
             with pytest.raises(AssertionError) as mine:
-                rt._get_stream(t0, m)
+                fe.window(t0, m)
             with pytest.raises(AssertionError) as theirs:
                 JaxNodeRuntime._get_stream(j, t0, m)
             assert str(mine.value) == str(theirs.value)
-    assert rt._dbuf.start > 0                # the ring filled and wrapped
+    assert fe.start > 0                      # the ring filled and wrapped
 
 
 def test_dect_rate_touches_no_front_end_counter():
@@ -152,7 +244,7 @@ def test_dect_rate_touches_no_front_end_counter():
     run = C.build_scenario(sc, "cpu")
     c0 = trace.counters()
     run.run_ticks(40)
-    assert all(rt.plan_tx.identity for rt in run.runtimes)
+    assert all(isinstance(rt.front_end, IdentityFrontEnd) for rt in run.runtimes)
     assert sum(rt.stats.tx_packets for rt in run.runtimes) > 0
     assert _delta(c0) == dict.fromkeys(FRONT_END, 0)
 
@@ -181,7 +273,7 @@ def test_p2p_u1b1_sdr_associates_and_sends_on_time():
     assert all(p.stats["beacons"] >= ft.stats["beacons"] - 1 for p in pts)
     assert [rt.stats.tx_late for rt in run.runtimes] == [0, 0, 0]
     d = _delta(c0)
-    assert d["runtime.pump_steps"] == sum(rt.front_end_steps
+    assert d["runtime.pump_steps"] == sum(rt.front_end.steps
                                           for rt in run.runtimes)
     assert d["runtime.pump_skipped_steps"] == 0
     assert d["span.runtime.tx_resample.calls"] == sum(
