@@ -108,7 +108,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      4, t_fine and n_eff_tx where a peak is detected); and vs its tiled twin
      (the kernel's own decomposition) at rtol 1e-5 / atol 1e-6, the
      measured max |err| reported, and bit for bit at the flagship, wall,
-     u8b16 and runtime shapes (the RMS gate skipped at rms_min = 0);
+     u8b16 and runtime shapes (the RMS gate skipped at rms_min = 0); the
+     sync report kernel on the same five chunks and B2's metric of them
+     (`_report_check`: bit for bit its tiled twin, its plain twin's
+     decisions, cfo / metric / rms within REPORT_TOL), timed there beside
+     its plain twin and bound, and again on every path's B2 inputs (7b-7h);
   5. polyphase kernel vs its plain twin at the wall step's shapes (10/9 on
      [16, 4, 23,040], 9/10 on [16, 4, 85,900]), at 40/27 and at a ragged
      9/10 length, rtol 2e-5 / atol 2e-5; a 3-chunk streaming chain equal to
@@ -384,6 +388,21 @@ def sync_work(B, R, T, P, n_pat):
             B * n_t * (R * (14 + 6 * (n_pat - 1)) + 11))
 
 
+def report_work(B, R, n_t, s):
+    """(bytes, ops) of the sync report of `s` (max_peaks K, M templates):
+    the metric row, each peak's fine segment of x (it holds the peak's
+    window but at a clamp), the templates and the weights read once, the
+    outputs written once (25 bytes a peak); a peak's sums 8 flops a lag
+    product and 3 a power, its segment 6 a sample (and a sine and a
+    cosine), its fine search 4 flops a sample a lag for the window energy
+    and 8 a template sample a lag for the complex product."""
+    K, M = s.max_peaks, s.tconj.shape[1]
+    return (B * n_t * 4 + B * K * R * s.seg_len * 8 + M * s.L * 8
+            + (s.L - s.P) * 4 + B * K * 25,
+            B * K * R * ((s.L - s.P) * 8 + s.L * 3 + s.seg_len * 6
+                         + s.D * s.L * 4 + s.D * M * s.L * 8))
+
+
 def poly_work(G, L, rows, n_in, n_out):
     """(bytes, ops) of one resampler FIR call: x read once, y written once,
     the taps once; 4 flops per nonzero tap of each output's phase."""
@@ -406,10 +425,10 @@ def launched_since(c0):
 
 def zero_counts():
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
-    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
+    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect, sync_report
     bcjr_cuda.launches = bcjr_cuda.launches_one_window = 0
     bcjr_cuda.launches_bf16 = 0
-    sync_detect.launches = polyphase.launches = 0
+    sync_detect.launches = polyphase.launches = sync_report.launches = 0
 
 
 def bcjr_llrs(K, Bc, g, dev):
@@ -1012,10 +1031,10 @@ def phase_loopback(dev, card, report):
         want_sync = n if kw.get("use_sync") else 0
         want_poly = 2 * n if kw.get("resampler_loop") else 0
         require(d["bcjr_one_window"] > 0 and d["bcjr"] > d["bcjr_one_window"]
-                and d["sync"] == want_sync and d["polyphase"] == want_poly
-                and d["bcjr_bf16"] == 0,
+                and d["sync"] == d["sync_report"] == want_sync
+                and d["polyphase"] == want_poly and d["bcjr_bf16"] == 0,
                 f"loopback {name}: kernels not launched as expected ({d}; one "
-                f"window and windowed bcjr > 0, sync {want_sync}, polyphase "
+                f"window and windowed bcjr > 0, sync and sync_report {want_sync}, polyphase "
                 f"{want_poly}, bcjr_bf16 0)")
         res[name] = {"curves": curves, "launches": d, "points": n,
                      "point_ms": point_ms,
@@ -1107,7 +1126,7 @@ def phase_loopback_kernels(dev, report):
     from dectnrp_tpu_torch.phy.ops import sync_detect
     from dectnrp_tpu_torch.phy.ops.polyphase import polyphase_fir, polyphase_fir_plain
 
-    out = {"bcjr": {}, "sync": {}, "polyphase": {}}
+    out = {"bcjr": {}, "sync": {}, "polyphase": {}, "sync_report": {}}
     g = torch.Generator(device=dev).manual_seed(9)
     for K, rows in [(56, LB_N), (96, LB_N)] + loopback_pdc_shapes():
         windowed = K >= 512
@@ -1152,6 +1171,7 @@ def phase_loopback_kernels(dev, report):
         s, ys = stage[(name, "sync")]
         label = f"[{LB_N},{ys.shape[1]},{ys.shape[2]}]_b{s.P // 16}"
         err, err_t = _sync_check(s, ys, f"loopback_{name}", report)
+        out["sync_report"][label] = _report_check(s, ys, f"loopback_{name}", report)
         sargs = (s.P, s.w, s.sl, s.sr, s.params.metric_threshold,
                  s.params.metric_max)
         b_ms, b_by = bound(*sync_work(*ys.shape, s.P, s.n_pat))
@@ -1190,7 +1210,9 @@ def print_path_times(card, path, times):
     """One line: the kernels on the inputs a path handed them (7c, 7e)."""
     print(f"[{card}] kernels on the {path} path's inputs, each equal to its "
           "plain twin (B1 bit for bit, B2 rtol 2e-3 atol 2e-4 off gate ties, B3 "
-          "bit for bit its tiled twin and rtol 2e-5 atol 2e-5 its plain twin); "
+          "bit for bit its tiled twin and rtol 2e-5 atol 2e-5 its plain twin, "
+          "sync_report bit for bit its tiled twin, its plain twin's decisions and "
+          "REPORT_TOL); "
           "max |err|, graph replay (eager) vs plain twin[, conv1d], bound: "
           + "; ".join(
               f"{kern} {k} {v['max_abs_err']:.3g}, {v['ms'] * 1e3:.1f} us "
@@ -1425,13 +1447,14 @@ def phase_runtime(dev, card, report):
         packets = name != "basic_simulator"
         windowed = d["bcjr"] - d["bcjr_one_window"]
         require(d["sync"] == w["sync"] and d["polyphase"] == w["polyphase"]
+                and d["sync_report"] == w["sync"]
                 and (d["bcjr_one_window"] > 0 or not packets)
                 and (windowed > 0) == (name == "exchange_mimo")
                 and d["bcjr_bf16"] == 0
                 and (d["polyphase"] > 0) == (name == "exchange_sdr"),
                 f"runtime {name}: kernels not launched as expected ({d}; sync "
-                f"{w['sync']}, polyphase {w['polyphase']}, bcjr as one window, "
-                "windowed only in exchange_mimo, bcjr_bf16 0)")
+                f"and sync_report {w['sync']}, polyphase {w['polyphase']}, bcjr "
+                "as one window, windowed only in exchange_mimo, bcjr_bf16 0)")
         print(f"[{card}] runtime {name}: {r['ticks']} ticks, median "
               f"{r['tick_ms_median']:.2f} ms / mean {r['tick_ms_mean']:.2f} ms "
               f"a tick = {r['realtime_multiple']:.2f}x realtime "
@@ -1481,14 +1504,15 @@ def phase_runtime_kernels(dev, report, catch, path="runtime"):
     PDC 480, the loopback firmware's 20-row batches), bit for bit its plain
     twin and turbo._bcjr_posterior, and windowed at the 2 x 2 exchange's
     PDC (K = 880), bit for bit its plain twin; B2 on a sync chunk [1, R, 2,496] at R = 1 and 2
-    (`_sync_check`); B3 on the 10/9 TX burst and the 9/10 front-end step
-    (history + 1,280 radio samples), bit for bit its tiled twin and within
-    POLY_TOL of its plain twin, conv1d beside it."""
+    (`_sync_check`), and the sync report after it (K = 4) on B2's metric of
+    the same chunk (`_report_check`); B3 on the 10/9 TX burst and the 9/10
+    front-end step (history + 1,280 radio samples), bit for bit its tiled
+    twin and within POLY_TOL of its plain twin, conv1d beside it."""
     from dectnrp_tpu_torch.kernels import graph_us
     from dectnrp_tpu_torch.phy.ops import sync_detect
     from dectnrp_tpu_torch.phy.ops.polyphase import polyphase_fir, polyphase_fir_plain
 
-    out = {"bcjr": {}, "sync": {}, "polyphase": {}}
+    out = {"bcjr": {}, "sync": {}, "polyphase": {}, "sync_report": {}}
     require({56, 96, 480} <= {K for K, _ in catch.bcjr} and catch.sync
             and {(10, 9), (9, 10)} <= {k[:2] for k in catch.poly},
             f"{path}: inputs not caught (bcjr {sorted(catch.bcjr)}, sync "
@@ -1507,6 +1531,7 @@ def phase_runtime_kernels(dev, report, catch, path="runtime"):
             "plain_ms": 1e-3 * graph_us(
                 lambda: sync_detect.detect_sm_plain(ys, *sargs), reps=5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        out["sync_report"][label] = _report_check(s, ys, f"{path}_{label}", report)
     for (L_, M_, shape), (G, m0, n_out, x) in sorted(catch.poly.items()):
         label = f"{L_}/{M_}_{list(shape)}".replace(" ", "")
         got = polyphase_fir(x, G, L_, M_, m0, n_out)
@@ -1525,6 +1550,68 @@ def phase_runtime_kernels(dev, report, catch, path="runtime"):
             **poly_times(x, G, L_, M_, m0, n_out), "bound_ms": b_ms,
             "bound_by": b_by}
     return out
+
+
+def report_args(s, templates):
+    """The sizes and tables of Sync `s` that ops/sync_report's functions
+    take after (iq, sm), with `templates` s.tconj or (the plain twin) s.Gc."""
+    return (s.P, s.L, s.half, s.norm, s.params, s.max_peaks, s.w_rep,
+            templates, s.neff)
+
+
+# the report kernel against its plain twin (the FFT path), which sums in
+# another order: cfo in rad/sample and metric (of size ~1) absolute, rms
+# relative to max(1, rms); a peak's sums run over L R terms, lane-strided (up to 288 a lane
+# at b = 16, R = 4) against the plain twin's tree of 32s. Measured on every
+# path's inputs (H100): cfo 4.5e-8, metric 2.4e-7, rms 1.2e-7 at most
+REPORT_TOL = {"cfo": 1e-6, "metric": 1e-6, "rms": 1e-6}
+
+
+def _report_check(s, y, label, report):
+    """The sync report kernel on chunk y and B2's metric of it: bit for bit
+    its tiled twin; against its plain twin detected and t_coarse equal,
+    t_fine equal at the detected peaks and within 1 sample elsewhere, cfo,
+    metric and rms within REPORT_TOL; then timed by graph replay and
+    eagerly beside the plain twin and its bound."""
+    from dectnrp_tpu_torch.kernels import graph_us
+    from dectnrp_tpu_torch.phy.ops import sync_report as sr
+    from dectnrp_tpu_torch.phy.ops.sync_detect import detect_sm
+
+    pr = s.params
+    sm = detect_sm(y, s.P, s.w, s.sl, s.sr, pr.metric_threshold, pr.metric_max,
+                   rms_min=pr.rms_min, rms_max=pr.rms_max)
+    args, pargs = report_args(s, s.tconj), report_args(s, s.Gc)
+    got = sr.sync_report_kernel(y, sm, *args)
+    tiled = sr.sync_report_tiled(y, sm, *args)
+    plain = sr.sync_report_plain(y, sm, *pargs)
+    torch.cuda.synchronize()
+    det = got["detected"]
+    require(all(torch.equal(v, tiled[k].to(v.dtype)) for k, v in got.items())
+            and torch.equal(det, plain["detected"])
+            and torch.equal(got["t_coarse"], plain["t_coarse"])
+            and torch.equal(got["t_fine"][det], plain["t_fine"][det])
+            and bool(((got["t_fine"] - plain["t_fine"]).abs() <= 1).all()),
+            f"sync report {label}: kernel vs tiled twin or plain twin "
+            f"({got} / {tiled} / {plain})")
+    errs = {k: float(((got[k] - plain[k]).abs()
+                      / (plain[k].abs().clamp_min(1.0) if k == "rms" else 1.0)).max())
+            for k in REPORT_TOL}
+    require(all(errs[k] <= t for k, t in REPORT_TOL.items()),
+            f"sync report {label}: kernel vs plain twin {errs} (limits {REPORT_TOL})")
+    B, R, _ = y.shape
+    b_ms, b_by = bound(*report_work(B, R, sm.shape[-1], s))
+    entry = {"shape": list(y.shape), "K": s.max_peaks,
+             "max_abs_err": max(errs.values()), "errs": errs,
+             "max_abs_err_tiled": 0.0,
+             "ms": 1e-3 * graph_us(lambda: sr.sync_report_kernel(y, sm, *args)),
+             "eager_ms": cuda_ms(lambda: sr.sync_report_kernel(y, sm, *args)),
+             "plain_ms": 1e-3 * graph_us(
+                 lambda: sr.sync_report_plain(y, sm, *pargs), reps=5),
+             "plain_eager_ms": cuda_ms(lambda: sr.sync_report_plain(y, sm, *pargs)),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "detected": det.float().mean().item()}
+    report[f"sync_report_check_{label}"] = entry
+    return entry
 
 
 def bcjr_caught(catch, path, dev):
@@ -1748,10 +1835,11 @@ def phase_iq(dev, card, report):
                 f"{fw_c.detection_times})")
         pumps = rt_pumps([rt])
         require(d["sync"] == rt.stats.chunks and d["polyphase"] == pumps + 3
+                and d["sync_report"] == rt.stats.chunks
                 and d["bcjr_one_window"] > 0 and d["bcjr"] == d["bcjr_one_window"]
                 and d["bcjr_bf16"] == 0,
                 f"iq_ingress file: kernels not launched as expected ({d}; sync "
-                f"{rt.stats.chunks}, polyphase {pumps} front-end steps + 3 TX "
+                f"and sync_report {rt.stats.chunks}, polyphase {pumps} front-end steps + 3 TX "
                 "bursts, bcjr as one window only, bcjr_bf16 0)")
         res["file"] = {"samples": hw.rx_time_passed, "tb_decoded": fw.tb_match,
                        "read_overruns": hw.read_overruns,
@@ -1795,10 +1883,12 @@ def phase_iq(dev, card, report):
             # an overrun skips front-end steps the ring no longer holds: B3
             # runs once a step that was read
             require(d["sync"] == rt.stats.chunks and 0 < d["polyphase"] <= pumps
+                    and d["sync_report"] == rt.stats.chunks
                     and (d["polyphase"] == pumps or hw.read_overruns > 0)
                     and d["bcjr_bf16"] == 0,
                     f"iq_ingress socket_radio: kernels not launched as expected "
-                    f"({d}; sync {rt.stats.chunks}, polyphase {pumps} steps, "
+                    f"({d}; sync and sync_report {rt.stats.chunks}, polyphase "
+                    f"{pumps} steps, "
                     f"fewer only after an overrun ({hw.read_overruns}))")
             res["socket_radio"] = {
                 "ticks": SOCKET_TICKS, "samples": hw.rx_time_passed,
@@ -2003,11 +2093,14 @@ def phase_options_kernels(dev, report, catch, syn):
 
     require(catch.bcjr and {56, 96} <= {K for K, _ in catch.bcjr},
             f"phy_options: B1 inputs not caught ({sorted(catch.bcjr)})")
-    out = {"bcjr": bcjr_caught(catch, "phy_options", dev), "sync": {}}
+    out = {"bcjr": bcjr_caught(catch, "phy_options", dev), "sync": {},
+           "sync_report": {}}
     runs = {}
     for gated, (s, ys) in (("off", syn["ungated"]), ("on", syn["gated"])):
         label = f"{list(ys.shape)}_b{s.P // 16}_rms_gate_{gated}".replace(" ", "")
         err, err_t = _sync_check(s, ys, f"phy_options_{label}", report)
+        out["sync_report"][label] = _report_check(s, ys, f"phy_options_{label}",
+                                                  report)
         pr = s.params
         sargs = (s.P, s.w, s.sl, s.sr, pr.metric_threshold, pr.metric_max)
         gate = {"rms_min": pr.rms_min, "rms_max": pr.rms_max}
@@ -2084,10 +2177,10 @@ def mc_sync_case(case, dev, gen, seed):
     zero_counts()
     secs, rep = host_ms(lambda: sh(y))
     d = counts()
-    require(d["sync"] == MC_SHARDS and d["bcjr"] == d["bcjr_bf16"]
-            == d["polyphase"] == 0,
+    require(d["sync"] == d["sync_report"] == MC_SHARDS and d["bcjr"]
+            == d["bcjr_bf16"] == d["polyphase"] == 0,
             f"multichip (a) {label}: kernels not launched as expected ({d}; "
-            f"sync {MC_SHARDS}, one a shard, nothing else)")
+            f"sync and sync_report {MC_SHARDS}, one a shard, nothing else)")
     dense = sync_dense(sh.syncs[dev], y, chunk, n_chunks, sh.overlap)
     for k in rep:
         require(torch.equal(rep[k], dense[k]),
@@ -2195,8 +2288,10 @@ def phase_multichip(dev, card, report):
         p1, p2 = per_phase["cross_node_loopback"], per_phase["sharded_sync_decode"]
         require(rec["ok"] and (rec["n_node"], rec["n_dp"]) == (4, 2),
                 f"multichip (c): dryrun_multichip failed: {M.summary(rec)}")
-        require(p1["bcjr"] > 0 and p2["bcjr"] > 0 and p1["sync"] == 0
-                and p2["sync"] == MC_SHARDS and d["bcjr_bf16"] == 0
+        require(p1["bcjr"] > 0 and p2["bcjr"] > 0
+                and p1["sync"] == p1["sync_report"] == 0
+                and p2["sync"] == p2["sync_report"] == MC_SHARDS
+                and d["bcjr_bf16"] == 0
                 and d["polyphase"] == 0,
                 f"multichip (c): kernels not launched as expected (phase 1 "
                 f"{p1}, phase 2 {p2}, all {d})")
@@ -2238,7 +2333,8 @@ def phase_multichip_kernels(dev, card, report, catch, keep):
     from dectnrp_tpu_torch.sections.part3.transmission_packet_structure import (
         get_N_samples_STF)
 
-    out = {"sync": {}, "bcjr": bcjr_caught(catch, "multichip", dev)}
+    out = {"sync": {}, "bcjr": bcjr_caught(catch, "multichip", dev),
+           "sync_report": {}}
     for label, u, b, chunk, n_chunks, *_ in MC_SYNC:
         shape = (n_chunks // MC_SHARDS, 1, chunk + 4 * get_N_samples_STF(u, b))
         require(shape in catch.sync, f"multichip: B2 input {shape} not caught "
@@ -2246,6 +2342,7 @@ def phase_multichip_kernels(dev, card, report, catch, keep):
         s, ys = catch.sync[shape]
         key = f"{list(shape)}_b{b}".replace(" ", "")
         out["sync"][key] = sync_entry(s, ys, f"multichip_{key}", report)
+        out["sync_report"][key] = _report_check(s, ys, f"multichip_{key}", report)
     # the sharded call's host time by shard count, beside the dense call
     sh8, y = keep
     u, b, chunk, n_chunks = 1, 16, sh8.chunk, sh8.n_chunks
@@ -2294,8 +2391,9 @@ def phase_multiprocess(dev, card, report):
     for r in rec["reports"]:
         la, lb, lc = (r[k]["launches"] for k in ("ether", "channels", "sync"))
         require(not any(la.values())
-                and lb["bcjr"] > 0 and lb["sync"] == 0
-                and lc["sync"] == dcn_dryrun.SYNC_LOCAL and lc["bcjr"] == 0
+                and lb["bcjr"] > 0 and lb["sync"] == lb["sync_report"] == 0
+                and lc["sync"] == lc["sync_report"] == dcn_dryrun.SYNC_LOCAL
+                and lc["bcjr"] == 0
                 and lb["polyphase"] == lc["polyphase"] == 0
                 and lb["bcjr_bf16"] == lc["bcjr_bf16"] == 0,
                 f"multiprocess rank {r['rank']}: kernels not launched as "
@@ -2311,7 +2409,7 @@ def phase_multiprocess(dev, card, report):
         for row in sc[sec]:
             d = row["launches"]
             want_b2 = 0 if sec == "vspace_sharded" else row["n_dev"]
-            require(d["sync"] == want_b2
+            require(d["sync"] == d["sync_report"] == want_b2
                     and d["bcjr"] == d["bcjr_bf16"] == d["polyphase"] == 0,
                     f"multiprocess scaling {sec} at {row['n_dev']} shards: "
                     f"kernels not launched as expected ({d}; B2 {want_b2}, "
@@ -2404,6 +2502,7 @@ def phase_multiprocess_kernels(dev, report):
     s, ys = catch.sync[shape]
     key = f"{list(shape)}_b{D.SYNC_B}".replace(" ", "")
     return {"sync": {key: sync_entry(s, ys, f"multiprocess_{key}", report)},
+            "sync_report": {key: _report_check(s, ys, f"multiprocess_{key}", report)},
             "bcjr": bcjr_caught(catch, "multiprocess", dev)}
 
 
@@ -2520,8 +2619,8 @@ def main() -> int:
     step1 = make_flagship_step(PacketSizesDef(1, 1, 0, 2, 0, 4, 6144),
                                n_pkts=N_PKTS, snr_db=SNR_DB)
     p1, t1, o1 = _inputs(step1, B_FLAG, 8, dev)
-    sync_errs.append(_sync_check(step1.sync, step1.awgn(step1.stream(p1, t1, o1),
-                                                        gen), "b1", report))
+    y1 = step1.awgn(step1.stream(p1, t1, o1), gen)
+    sync_errs.append(_sync_check(step1.sync, y1, "b1", report))
     pw, tw, ow = _inputs(wall, B_WALL, 9, dev)
     yw = wall.resample_down(wall.awgn(wall.stream(pw, tw, ow), gen))
     sync_errs.append(_sync_check(wall.sync, yw, "wall_b8_R4", report))
@@ -2536,6 +2635,12 @@ def main() -> int:
     sync_errs.append(_sync_check(s_rt, y_rt, "runtime_u1b1", report))
     sync_err = max(e for e, _ in sync_errs)
     sync_err_tiled = max(e for _, e in sync_errs)
+    # the sync report kernel on the same chunks and B2's metric of them
+    report_times = {
+        label: _report_check(mod, yy, f"main_{label}", report)
+        for label, mod, yy in (("b16", step.sync, y), ("b1", step1.sync, y1),
+                               ("wall_b8_R4", wall.sync, yw), ("u8b16", s8, y8),
+                               ("runtime_u1b1", s_rt, y_rt))}
     # the RMS gate is skipped at rms_min = 0: B2 is then bit for bit its
     # tiled twin at the streams of the shapes phase 7 times
     for label in ("b16", "wall_b8_R4", "u8b16", "runtime_u1b1"):
@@ -2565,7 +2670,8 @@ def main() -> int:
         n_pdc = got["bcjr"] - got["bcjr_one_window"]
         require(got["bcjr_one_window"] == n_pcc
                 and 2 * 2 * n_k <= n_pdc <= 2 * rx.n_iter * n_k
-                and got["sync"] == 1 and got["polyphase"] == n_poly
+                and got["sync"] == got["sync_report"] == 1
+                and got["polyphase"] == n_poly
                 and got["bcjr_bf16"] == 0,
                 f"{name}: kernels not launched as expected ({got}; one-window "
                 f"{n_pcc}, windowed {4 * n_k}..{2 * rx.n_iter * n_k}, sync 1, "
@@ -2883,6 +2989,24 @@ def main() -> int:
          "phy_options": path_entry(opt_times["sync"]),
          "multichip": path_entry(mc_times["sync"]),
          "multiprocess": path_entry(mp_times["sync"])},
+        {"name": "sync_report", "route": "cuda",
+         "source": "dectnrp_tpu_torch/csrc/sync_report.cu",
+         "replaces": None, "launches": total("sync_report"),
+         "launches_by_path": by_path("sync_report"),
+         "max_abs_err": max(v["max_abs_err"] for v in report_times.values()),
+         "max_abs_err_tiled": 0.0,
+         **{k: report_times["runtime_u1b1"][k]
+            for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "shapes": {k: {kk: v[kk] for kk in ("shape", "K", "ms", "eager_ms",
+                                             "plain_ms", "bound_ms")}
+                    for k, v in report_times.items()},
+         "loopback": path_entry(lb_times["sync_report"]),
+         "runtime": path_entry(rt_times["sync_report"]),
+         "iq_ingress": path_entry(iq_times["sync_report"]),
+         "phy_options": path_entry(opt_times["sync_report"]),
+         "multichip": path_entry(mc_times["sync_report"]),
+         "multiprocess": path_entry(mp_times["sync_report"])},
         {"name": "polyphase_fir", "route": "cuda",
          "source": "dectnrp_tpu_torch/csrc/polyphase.cu",
          "replaces": "dectnrp_tpu/phy/ops/polyphase.py:191",

@@ -71,6 +71,9 @@ def _declare(lib):
     lib.polyphase_fir.restype = i
     lib.polyphase_blocks_per_sm.argtypes = [i, i, i]
     lib.polyphase_blocks_per_sm.restype = i
+    lib.sync_report.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                f, f, f, i, f, f, f, f, p]
+    lib.sync_report.restype = i
     return lib
 
 
@@ -117,7 +120,8 @@ def load():
 
 
 #: the kernel launch counters of `launch_counts`
-LAUNCH_KEYS = ("bcjr", "bcjr_one_window", "bcjr_bf16", "sync", "polyphase")
+LAUNCH_KEYS = ("bcjr", "bcjr_one_window", "bcjr_bf16", "sync", "polyphase",
+               "sync_report")
 
 
 def launch_counts() -> dict:
@@ -127,12 +131,12 @@ def launch_counts() -> dict:
     else), then every counter and span aggregate of `trace.counters()`."""
     from .common import trace
     from .phy.fec import bcjr_cuda
-    from .phy.ops import polyphase, sync_detect
+    from .phy.ops import polyphase, sync_detect, sync_report
     return {"bcjr": bcjr_cuda.launches,
             "bcjr_one_window": bcjr_cuda.launches_one_window,
             "bcjr_bf16": bcjr_cuda.launches_bf16,
             "sync": sync_detect.launches, "polyphase": polyphase.launches,
-            **trace.counters()}
+            "sync_report": sync_report.launches, **trace.counters()}
 
 
 def check(err: int, name: str) -> None:

@@ -7,10 +7,13 @@ detection metric comes from the detection kernel (ops/sync_detect.py: the
 CUDA kernel on the card, its plain twin on CPU); up to `max_peaks` packets
 are found by argmax rounds with +-1 STF masking; metric, CFO and RMS are
 recomputed per peak from O(L) windows; the fine peak and N_eff_TX come from
-an FFT cross-correlation against all STF templates.
+a cross-correlation against all STF templates. That report after detection
+is ops/sync_report.py: one kernel launch (csrc/sync_report.cu) for a CUDA
+chunk, its plain twin (an FFT correlation) for a CPU one.
 
 This is the JAX module's fused-detection branch (sync.py:234-238) on every
-device, so CPU and card share one code path and differ only in `sm`. Unlike
+device, so CPU and card share one code path and differ only in `sm` and in
+the report's order of float32 sums (the kernel's direct fine search). Unlike
 that branch it also serves the RMS window gate (rms_min > 0, which JAX
 routes to its XLA detection, sync.py:176-177): the detection kernel folds
 it into the smoothing, and the peaks' own RMS must pass it too. With
@@ -28,6 +31,7 @@ import torch
 from ..sections.part3.stf import cover_sequence, n_stf_patterns, stf_freq_grid
 from ..sections.part3.transmission_packet_structure import get_N_samples_STF
 from .ops.sync_detect import detect_sm
+from .ops.sync_report import _windows, sync_report
 from .plan import register_tables
 
 
@@ -54,31 +58,6 @@ def stf_time_template(u: int, b: int, N_eff_TX: int) -> np.ndarray:
     cover = cover_sequence(u)
     t = np.concatenate([c * pattern for c in cover])
     return (t / np.linalg.norm(t)).astype(np.complex64)
-
-
-def _sum_rows(x: torch.Tensor) -> torch.Tensor:
-    """x [..., n] summed over its last dim in an order that does not depend
-    on how many rows x has: 32 columns at a time, repeatedly (zero padded).
-    PyTorch's CUDA reduction shares a long row among more threads when it
-    has fewer rows (Reduce.cuh, set_block_dimension), so a plain .sum(-1)
-    of the same row differs in its last bits between batch sizes; a row of
-    at most 32 is always one warp's. The time-sharded search relies on it:
-    its B = c_loc calls equal the dense search's one call bit for bit."""
-    while x.shape[-1] > 1:
-        pad = -x.shape[-1] % 32
-        if pad:
-            x = torch.cat([x, x.new_zeros((*x.shape[:-1], pad))], -1)
-        x = x.reshape(*x.shape[:-1], -1, 32).sum(-1)
-    return x[..., 0]
-
-
-def _windows(x: torch.Tensor, start: torch.Tensor, n: int) -> torch.Tensor:
-    """x [B, R, T], start [B, K] -> x[b, :, start[b,k]:+n] as [B, K, R, n]."""
-    B, R, _ = x.shape
-    idx = start[..., None] + torch.arange(n, device=x.device)       # [B,K,n]
-    K = start.shape[1]
-    return torch.gather(x[:, None].expand(B, K, R, x.shape[-1]), 3,
-                        idx[:, :, None, :].expand(B, K, R, n))
 
 
 class Sync(torch.nn.Module):
@@ -115,74 +94,23 @@ class Sync(torch.nn.Module):
         register_tables(self, {
             "w": w, "w_rep": np.repeat(w, P).astype(np.float32),
             "Gc": np.conj(np.fft.fft(np.conj(templates), n=nfft, axis=0)),
+            "tconj": np.ascontiguousarray(templates),
             "neff": np.asarray(neff_candidates, np.int64)})
         self.nfft = nfft
         self.beta_icfo = BetaIcfo(u, b) if params.est_beta_icfo else None
 
-    def _peak_vals(self, x, t_coarse):
-        """metric / C / rms at the K peaks from O(L) windows."""
-        L, P, R = self.L, self.P, x.shape[1]
-        xw = _windows(x, t_coarse.clamp(0, self.T - L), L)        # [B,K,R,L]
-        pwin = xw[..., :L - P] * torch.conj(xw[..., P:])
-        c = _sum_rows((pwin * self.w_rep).flatten(-2))
-        p2 = _sum_rows((xw.abs() ** 2).flatten(-2))
-        met = self.norm * c.abs() / p2.clamp_min(1e-20)
-        rms = torch.sqrt(p2 / (L * R))
-        return c, met, rms
-
     def forward(self, iq: torch.Tensor) -> dict:
-        pr, L, P = self.params, self.L, self.P
-        sm = detect_sm(iq, P, self.w, self.sl, self.sr, pr.metric_threshold,
+        pr = self.params
+        sm = detect_sm(iq, self.P, self.w, self.sl, self.sr, pr.metric_threshold,
                        pr.metric_max, rms_min=pr.rms_min,
                        rms_max=pr.rms_max)                        # [B,n_t]
-
-        # coarse peaks: argmax rounds with +-1 STF masking between rounds
-        tt = torch.arange(self.n_t, device=iq.device)
-        sm_cur, t_list = sm, []
-        for _ in range(self.max_peaks):
-            t_k = sm_cur.argmax(-1)
-            t_list.append(t_k)
-            if self.max_peaks > 1:
-                sm_cur = torch.where((tt[None, :] - t_k[:, None]).abs() < L,
-                                     torch.full_like(sm_cur, -1.0), sm_cur)
-        t_coarse = torch.stack(t_list, -1)                        # [B,K]
-        # both the instantaneous and the smoothed metric must clear the gate
-        sm_pk = torch.gather(sm, -1, t_coarse)
-        c_pk, peak_metric, peak_rms = self._peak_vals(iq, t_coarse)
-        inst_ok = (peak_metric > pr.metric_threshold) & \
-            (peak_metric < pr.metric_max)
-        if pr.rms_min > 0.0:
-            inst_ok &= (peak_rms > pr.rms_min) & (peak_rms < pr.rms_max)
-        detected = inst_ok & (sm_pk > pr.metric_threshold)
-        cfo = -torch.angle(c_pk) / P                              # rad/sample
-
-        # fine peak + N_eff_TX: FFT cross-correlation of the coarse-peak
-        # segment against all templates (seg_len = L + D - 1, so one
-        # nfft >= seg_len circular correlation is the valid linear one)
-        D = self.D
-        t0 = (t_coarse - self.half).clamp(0, self.T - self.seg_len)
-        seg = _windows(iq, t0, self.seg_len)                      # [B,K,R,S]
-        n = torch.arange(self.seg_len, dtype=torch.float32, device=iq.device)
-        seg = seg * torch.polar(torch.ones_like(n), -(cfo[..., None] * n))[:, :, None]
-        A = torch.fft.fft(seg, n=self.nfft, dim=-1)               # [B,K,R,nfft]
-        xc = torch.fft.ifft(A[..., None] * self.Gc, dim=-2)[..., :D, :]
-        cs = torch.cumsum(seg.abs() ** 2, -1)
-        cs = torch.cat([torch.zeros_like(cs[..., :1]), cs], -1)
-        e_win = cs[..., L:L + D] - cs[..., :D]                    # [B,K,R,D]
-        m = (xc.abs() ** 2 / e_win.clamp_min(1e-20)[..., None]).sum(2)  # [B,K,D,M]
-        flat = m.flatten(-2).argmax(-1)
-        M = m.shape[-1]
-        t_fine = t0 + flat // M
-        n_eff = self.neff[flat % M]
-
-        out = {"detected": detected, "t_fine": t_fine.to(torch.int32),
-               "t_coarse": t_coarse.to(torch.int32),
-               "cfo": cfo.to(torch.float32), "n_eff_tx": n_eff.to(torch.int32),
-               "metric": peak_metric.to(torch.float32),
-               "rms": peak_rms.to(torch.float32)}
+        out = sync_report(iq, sm, self.P, self.L, self.half, self.norm, pr,
+                          self.max_peaks, self.w_rep, self.tconj, self.Gc,
+                          self.neff)                              # [B,K] each
         if self.beta_icfo is not None:
             # the FFT window of 64 b samples from the fine peak
             Nfft = self.beta_icfo.Nfft
+            t_fine = out["t_fine"].to(torch.int64)
             beta, s = self.beta_icfo(
                 _windows(iq, t_fine.clamp(0, self.T - Nfft), Nfft))
             out["beta"], out["cfo_int"] = beta.to(torch.int32), s.to(torch.int32)

@@ -374,6 +374,166 @@ def test_sync_wrapper_rejects_bad_input(dev):
     assert sync_detect.launches == n0
 
 
+def _report_input(dev, b, R, T, B, offs, seed):
+    """x [B, R, T] at the runtime's noise level (-15 dB) with a packet of
+    u = 1 at bandwidth factor b (b = 1: psdef (1, 1, 0, 2, 0, 1, 6144), b =
+    16: the multichip path's (1, 16, 1, 4, 0, 4, 6144)) at each of row i's
+    offsets offs[i] (each antenna with its own phase), made on the card."""
+    from dectnrp_tpu_torch.phy.tx import build_tx
+    from dectnrp_tpu_torch.sections.part3.packet_sizes import (PacketSizesDef,
+                                                               get_packet_sizes)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 10 ** (-15 / 20) * torch.randn((B, R, T), dtype=torch.complex64,
+                                       generator=g, device=dev)
+    n_p = max(1, sum(len(o) for o in offs))
+    rng = np.random.default_rng(seed)
+    psdef = PacketSizesDef(*{1: (1, 1, 0, 2, 0, 1, 6144),
+                             16: (1, 16, 1, 4, 0, 4, 6144)}[b])
+    bits = [torch.as_tensor(rng.integers(0, 2, (n_p, n)), dtype=torch.uint8,
+                            device=dev)
+            for n in (40, get_packet_sizes(psdef).N_TB_bits)]
+    fl = torch.zeros((n_p,), dtype=torch.bool, device=dev)
+    iq = build_tx(psdef, 0x12345678, 1, device=dev)(*bits, fl, fl)[:, 0]
+    rot = torch.polar(torch.ones(iq.shape[-1], device=dev),
+                      2e-4 / b * torch.arange(iq.shape[-1], device=dev))
+    ant = torch.polar(torch.ones(R, device=dev), 0.7 * torch.arange(R, device=dev))
+    j = 0
+    for i, row in enumerate(offs):
+        for o in row:
+            n = min(iq.shape[-1], T - o)
+            x[i, :, o:o + n] += (ant[:, None] * (iq[j] * rot)[None])[:, :n]
+            j += 1
+    return x
+
+
+def report_args(s, templates):
+    """The sizes and tables of Sync `s` that ops/sync_report's functions
+    take after (iq, sm), with `templates` s.tconj or (the plain twin) s.Gc."""
+    return (s.P, s.L, s.half, s.norm, s.params, s.max_peaks, s.w_rep,
+            templates, s.neff)
+
+
+# (b, R, K, B, T, offsets): the runtime's chunk at R = 1, 2 and K = 4
+# (packets mid-chunk, two starting less than L apart, at both edges; noise
+# alone), one peak (K = 1, a PCC-less caller), a loopback point's [500, 1,
+# 2048], 8 antennas and 16 peaks, 3 antennas (a lane of each 4 idle), and
+# the loopback steps' 192,512-sample
+# streams at b = 16 (a metric row of 190k floats, L = 1,792, 513 lags)
+REPORT_SHAPES = [(1, 1, 4, 2, 2496, [[300], [1100, 1190]]),
+                 (1, 2, 4, 2, 2496, [[3], [2496 - 136]]),
+                 (1, 2, 4, 1, 2496, [[]]), (1, 1, 1, 3, 2496, [[300], [], [2000]]),
+                 (1, 1, 1, 500, 2048, [[100 + 3 * i] for i in range(500)]),
+                 (1, 8, 16, 4, 4096, [[200, 900], [], [1500], [3000, 3050]]),
+                 (1, 3, 2, 2, 2496, [[300], [1500]]),
+                 (16, 2, 2, 2, 192512, [[5000, 100000], [150000]])]
+
+
+@pytest.mark.parametrize("b,R,K,B,T,offs", REPORT_SHAPES)
+def test_sync_report_kernel_matches_tiled(dev, b, R, K, B, T, offs):
+    """The report kernel equals its tiled twin bit for bit on the card (the
+    same order of float32 operations, each rounded on its own; cos, sin,
+    atan2 and sqrt are CUDA's own functions in both), on the card's own
+    metric and on one with planted ties (three equal values, the first
+    wins, the one inside L is masked); against the plain twin it differs
+    only in the order of its float32 sums: detected and t_coarse equal,
+    t_fine within 1 sample and equal at detected peaks, cfo within 1e-7 at
+    detected peaks. Sync on the card launches B2 and the report kernel once
+    a call and returns the kernel's report."""
+    from dectnrp_tpu_torch.phy.ops import sync_detect, sync_report as sr
+    from dectnrp_tpu_torch.phy.sync import build_sync
+
+    x = _report_input(dev, b, R, T, B, offs, 10 * R + K)
+    s = build_sync(1, b, T, max_peaks=K, device=dev)
+    pr, L = s.params, s.L
+    sm = sync_detect.detect_sm(x, s.P, s.w, s.sl, s.sr, pr.metric_threshold,
+                               pr.metric_max)
+    tied = sm.clone()
+    tied[:, [40, 40 + L // 2, 40 + L]] = 7.0
+    for m in (sm, tied):
+        n0 = sr.launches
+        got = sr.sync_report_kernel(x, m, *report_args(s, s.tconj))
+        assert sr.launches == n0 + 1
+        want = sr.sync_report_tiled(x, m, *report_args(s, s.tconj))
+        plain = sr.sync_report_plain(x, m, *report_args(s, s.Gc))
+        assert sr.launches == n0 + 1
+        for k, v in got.items():
+            assert v.dtype == plain[k].dtype and v.shape == plain[k].shape, k
+            assert torch.equal(v, want[k].to(v.dtype)), (k, v, want[k])
+        for k in ("detected", "t_coarse"):
+            assert torch.equal(got[k], plain[k]), k
+        det = got["detected"]
+        assert ((got["t_fine"] - plain["t_fine"]).abs() <= 1).all()
+        assert torch.equal(got["t_fine"][det], plain["t_fine"][det])
+        assert ((got["cfo"] - plain["cfo"])[det].abs() <= 1e-7).all()
+    assert (got["t_coarse"][:, 0] == 40).all()
+    if K > 1:
+        assert (got["t_coarse"][:, 1] == 40 + L).all()
+    n0, b0 = sr.launches, sync_detect.launches
+    rep = s(x)
+    assert (sr.launches, sync_detect.launches) == (n0 + 1, b0 + 1)
+    mine = sr.sync_report_kernel(x, sm, *report_args(s, s.tconj))
+    for k, v in rep.items():
+        assert torch.equal(v, mine[k][..., 0] if K == 1 else mine[k]), k
+    live = [i for i, o in enumerate(offs) if o and o[0] < T - 200]
+    assert mine["detected"][live, 0].all()
+
+
+def test_sync_report_wrapper_rejects_bad_input(dev):
+    """What the kernel does not serve raises in the wrapper with the reason
+    and is refused by the C entry too (10 antennas of b = 16, u = 8
+    segments, beyond a block's shared memory; 33 antennas, beyond a warp's
+    lanes; no peak; a chunk shorter
+    than the fine search's segment); inputs of another device, type or
+    layout raise; Sync on the card raises there too, and launches the
+    kernel on the 192,512-sample streams of the loopback steps."""
+    from dectnrp_tpu_torch import kernels
+    from dectnrp_tpu_torch.phy.ops import sync_report as sr
+    from dectnrp_tpu_torch.phy.sync import build_sync
+
+    n0 = sr.launches
+    s = build_sync(1, 1, 2496, max_peaks=4, device=dev)
+    x = torch.zeros((1, 1, 2496), dtype=torch.complex64, device=dev)
+    sm = torch.zeros((1, 2368), device=dev)
+    args = report_args(s, s.tconj)
+    with pytest.raises(ValueError, match="K = 0"):
+        sr.sync_report_kernel(x, sm, *args[:5], 0, *args[6:])
+    with pytest.raises(ValueError, match="complex64"):
+        sr.sync_report_kernel(x.to(torch.complex128), sm, *args)
+    with pytest.raises(ValueError, match="complex64"):
+        sr.sync_report_kernel(torch.zeros((1, 1, 4992), dtype=torch.complex64,
+                                          device=dev)[..., ::2], sm, *args)
+    with pytest.raises(ValueError, match="device"):
+        sr.sync_report_kernel(x.cpu(), sm.cpu(), *args)
+    with pytest.raises(ValueError, match="sm must"):
+        sr.sync_report_kernel(x, sm[:, :-1], *args)
+    with pytest.raises(ValueError, match="tables"):
+        sr.sync_report_kernel(x, sm, *args[:7], s.tconj.T.contiguous(), args[8])
+    s8 = build_sync(8, 16, 192512, device=dev)
+    with pytest.raises(ValueError, match="bytes"):
+        s8(torch.zeros((1, 10, 192512), dtype=torch.complex64, device=dev))
+    out = [torch.empty((3, 1, 4), device=dev, dtype=t)
+           for t in (torch.bool, torch.int32, torch.float32)]
+
+    def c_entry(R, T, P, L, half, K):
+        return kernels.load().sync_report(
+            x.data_ptr(), sm.data_ptr(), s.w_rep.data_ptr(), s.tconj.data_ptr(),
+            s.neff.data_ptr(), *(o.data_ptr() for o in out), 1, R, T, P, L,
+            half, 4, K, 7 / 6, 0.25, 1.5, 0, 0.0, 0.0, 1 / 112, 1 / 16,
+            kernels.stream_ptr(dev))
+    assert c_entry(1, 2496, 16, 112, 16, 4) == 0
+    for args in ((10, 192512, 256, 2304, 256, 1), (33, 2496, 16, 112, 16, 1),
+                 (1, 2496, 16, 112, 16, 0),
+                 (1, 2496, 16, 112, 1300, 4), (1, 128, 16, 112, 16, 1)):
+        assert c_entry(*args) != 0, args
+        assert sr._refusal(args[0], *args[1:5], 4, args[5]), args
+    torch.cuda.synchronize()
+    assert sr.launches == n0
+    long = build_sync(1, 16, 192512, max_peaks=2, device=dev)
+    rep = long(torch.zeros((1, 1, 192512), dtype=torch.complex64, device=dev))
+    assert sr.launches == n0 + 1 and rep["t_fine"].shape == (1, 2)
+
+
 RATIOS = [(10, 9), (40, 27), (20, 9), (80, 27), (2, 1),
           (9, 10), (27, 40), (9, 20), (27, 80), (1, 2)]
 
@@ -507,24 +667,25 @@ def test_runtime_exchange_card_matches_cpu(dev, kind):
     """The beacon exchange (runtime_check) on the card and on the CPU with
     the same vspace draws: every beacon decoded with its payload, equal
     RuntimeStats, detection times and TBs; the sync and BCJR kernels
-    launched, the polyphase kernel only at 1.92 Ms/s."""
+    launched (B2 and the sync report once a chunk), the polyphase kernel
+    only at 1.92 Ms/s."""
     from dectnrp_tpu_torch import runtime_check as rc
     from dectnrp_tpu_torch.phy.fec import bcjr_cuda
-    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect
+    from dectnrp_tpu_torch.phy.ops import polyphase, sync_detect, sync_report
 
     runs = {}
     for d in (dev, "cpu"):
         ex = rc.build(kind, d)
         c0 = (sync_detect.launches, bcjr_cuda.launches_one_window,
-              polyphase.launches, bcjr_cuda.launches_bf16)
+              polyphase.launches, bcjr_cuda.launches_bf16, sync_report.launches)
         got = rc.run(ex, draws=rc.cpu_draws(ex, 3), ticks=40)
         assert got["ok"], got
         runs[str(d)] = ex
         if d is dev:
             c1 = (sync_detect.launches, bcjr_cuda.launches_one_window,
-                  polyphase.launches, bcjr_cuda.launches_bf16)
+                  polyphase.launches, bcjr_cuda.launches_bf16, sync_report.launches)
             n = [x - y for x, y in zip(c1, c0)]
-            assert n[0] == ex.rt_tx.stats.chunks + ex.rt_rx.stats.chunks
+            assert n[0] == n[4] == ex.rt_tx.stats.chunks + ex.rt_rx.stats.chunks
             assert n[1] > 0 and n[3] == 0
             assert (n[2] > 0) == (kind == "sdr"), n
     assert rc.differences(runs[str(dev)], runs["cpu"]) == []
@@ -566,11 +727,11 @@ def test_sharded_sync_card_matches_dense(dev):
     """The time-sharded sync at b = 1 (chunk 8,192 x 64 over 8 shards of the
     one card, SCALING_r04's chunk) is bit for bit the dense search
     (sync_dense: all 64 windows in one Sync call on the card, masked the
-    same way), launches B2 once a shard, and finds the four packets: one
-    mid-shard, one straddling a chunk boundary, one the shard boundary
-    chunk 7 -> 8, one in the last shard."""
+    same way), launches B2 and the sync report once a shard, and finds
+    the four packets: one mid-shard, one straddling a chunk boundary, one
+    the shard boundary chunk 7 -> 8, one in the last shard."""
     from dectnrp_tpu_torch.common.mesh import Mesh
-    from dectnrp_tpu_torch.phy.ops import sync_detect
+    from dectnrp_tpu_torch.phy.ops import sync_detect, sync_report
     from dectnrp_tpu_torch.phy.sync import SyncParams
     from dectnrp_tpu_torch.phy.sync_sharded import (build_sync_sharded,
                                                     dedup_reports, sync_dense)
@@ -594,9 +755,10 @@ def test_sharded_sync_card_matches_dense(dev):
     sh = build_sync_sharded(1, 1, chunk, n_chunks,
                             Mesh(np.array([dev] * n_sh, dtype=object), ("t",)),
                             params=SyncParams(metric_threshold=0.35))
-    n0 = sync_detect.launches
+    n0, r0 = sync_detect.launches, sync_report.launches
     got = sh(y)
     assert sync_detect.launches == n0 + n_sh
+    assert sync_report.launches == r0 + n_sh
     want = sync_dense(sh.syncs[dev], y, chunk, n_chunks, sh.overlap)
     for k in want:
         assert torch.equal(got[k], want[k]), k

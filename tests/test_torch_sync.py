@@ -378,3 +378,181 @@ def sync_detect_sm_of(sync, stream):
     pr = sync.params
     return detect_sm_plain(torch.as_tensor(stream), sync.P, sync.w, sync.sl,
                            sync.sr, pr.metric_threshold, pr.metric_max).numpy()
+
+
+# the report after detection (ops/sync_report.py) at the runtime's chunk:
+# u = b = 1, T = 2048 + 4 N_STF = 2,496, n_t = 2,368
+RT_T = 2496
+REPORT_CASES = ["noise", "packet", "two_in_L", "edges", "sm_tie"]
+
+
+def _report_stream(case, R, seed):
+    """[2, R, RT_T] at the runtime's noise level (-15 dB) with, by case, no
+    packet; one a row (offsets 300, 1100); two a row whose STFs start less
+    than L = 112 apart (300 / 360, 1100 / 1190); one at each edge of the
+    chunk (offset 3: the fine window clamps at 0; n_t - 8: the last coarse
+    times). Each antenna sees the packet with its own phase and noise."""
+    from dectnrp_tpu.phy.tx import build_tx
+    from dectnrp_tpu.sections.part3.packet_sizes import get_packet_sizes
+
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((2, R, RT_T))
+         + 1j * rng.standard_normal((2, R, RT_T))).astype(np.complex64)
+    x *= np.sqrt(10 ** (-15 / 10) / 2)
+    offs = {"noise": [[], []], "packet": [[300], [1100]], "sm_tie": [[300], [1100]],
+            "two_in_L": [[300, 360], [1100, 1190]],
+            "edges": [[3], [RT_T - 112 - 16 - 8]]}[case]
+    if any(offs):
+        psdef = PacketSizesDef(1, 1, 0, 2, 0, 1, 6144)
+        tx = build_tx(psdef, 0x12345678, 1)
+        n_p = 3
+        plcf = jnp.asarray(rng.integers(0, 2, (n_p, 40)), jnp.uint8)
+        tb = jnp.asarray(rng.integers(0, 2, (n_p, get_packet_sizes(psdef).N_TB_bits)),
+                         jnp.uint8)
+        fl = jnp.zeros((n_p,), bool)
+        iq = np.asarray(tx(plcf, tb, fl, fl))[:, 0]
+        rot = np.exp(1j * 2e-4 * np.arange(iq.shape[-1]))
+        ant = np.exp(1j * 0.7 * np.arange(R))[:, None]
+        for i, row in enumerate(offs):
+            for j, o in enumerate(row):
+                n = min(iq.shape[-1], RT_T - o)
+                x[i, :, o:o + n] += (ant * (iq[j] * rot)[None])[:, :n].astype(np.complex64)
+    return x
+
+
+def report_args(s, templates):
+    """The sizes and tables of Sync `s` that ops/sync_report's functions
+    take after (iq, sm), with `templates` s.tconj or (the plain twin) s.Gc."""
+    return (s.P, s.L, s.half, s.norm, s.params, s.max_peaks, s.w_rep,
+            templates, s.neff)
+
+
+def _fine_values64(x, rep, s):
+    """The fine search's D M values [B, K, D M] in float64, at the report's
+    coarse peaks and CFO: to flag near ties of its argmax."""
+    x = torch.as_tensor(x).to(torch.complex128)
+    t0 = (rep["t_coarse"].to(torch.int64) - s.half).clamp(0, s.T - s.seg_len)
+    from dectnrp_tpu_torch.phy.ops.sync_report import _windows
+
+    seg = _windows(x, t0, s.seg_len)                             # [B,K,R,S]
+    n = torch.arange(s.seg_len, dtype=torch.float64)
+    seg = seg * torch.exp(-1j * rep["cfo"].to(torch.float64)[..., None, None] * n)
+    tc = s.tconj.to(torch.complex128)                            # [L, M]
+    win = seg.unfold(-1, s.L, 1)                                 # [B,K,R,D,L]
+    xc = torch.einsum("bkrdl,lm->bkrdm", win, tc)
+    e = (win.abs() ** 2).sum(-1)
+    return (xc.abs() ** 2 / e[..., None]).sum(2).flatten(-2)
+
+
+def _fine_ties(x, rep, s, rel=1e-5):
+    """[B, K] True where the best two fine-search values lie within `rel`."""
+    v = _fine_values64(x, rep, s)
+    top = v.topk(2, -1).values
+    return ((top[..., 0] - top[..., 1]) <= rel * top[..., 0]).numpy()
+
+
+@pytest.mark.parametrize("case", REPORT_CASES)
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("R", [1, 2])
+def test_sync_report_tiled_matches_plain_and_jax(R, K, case):
+    """The report kernel's tiled twin (its order of float32 operations:
+    lane-strided peak sums, the direct correlation) at the runtime's chunk,
+    against the plain twin on the same metric and against JAX build_sync on
+    the same draws. Against the plain twin: detected and t_coarse equal
+    (the argmax rounds are exact), t_fine and n_eff_tx equal but where the
+    float64 fine values flag a near tie (t_fine then within 1), cfo within
+    1e-7 rad/sample, metric within 1e-6 (|c| of a noise window is a sum
+    with cancellation, so its rounding is relative to the sum of its terms'
+    sizes, metric's to about 1) and rms within rtol 1e-6 (a sum of positive
+    terms). `sm_tie` plants equal metric values (the first index wins, the
+    second beyond L is the next peak). Against JAX as
+    test_runtime_shape_sync_report_matches_jax: every field at the peaks
+    that are real values of sm (all peaks on noise alone)."""
+    from dectnrp_tpu.phy.sync import build_sync
+    from dectnrp_tpu_torch.phy.ops import sync_report as sr
+    from dectnrp_tpu_torch.phy.ops.sync_detect import detect_sm_plain
+    from dectnrp_tpu_torch.phy.sync import build_sync as t_build_sync
+
+    x = _report_stream(case, R, 100 * R + 10 * K + REPORT_CASES.index(case))
+    s = t_build_sync(1, 1, RT_T, max_peaks=K, device="cpu")
+    pr = s.params
+    xt = torch.as_tensor(x)
+    sm = detect_sm_plain(xt, s.P, s.w, s.sl, s.sr, pr.metric_threshold,
+                         pr.metric_max)
+    n0 = sr.launches
+    for sm_in in ([sm, sm.clone()] if case == "sm_tie" else [sm]):
+        if sm_in is not sm:
+            # equal values above every real peak at 40 and 40 + L / 2
+            # (masked), and at 40 + L (the next peak)
+            sm_in[:, [40, 40 + 56, 40 + 112]] = 7.0
+        tiled = sr.sync_report_tiled(xt, sm_in, *report_args(s, s.tconj))
+        plain = sr.sync_report_plain(xt, sm_in, *report_args(s, s.Gc))
+        for k in ("detected", "t_coarse"):
+            np.testing.assert_array_equal(tiled[k].numpy(), plain[k].numpy(), k)
+        if sm_in is not sm:
+            assert (tiled["t_coarse"][:, 0] == 40).all()
+            if K > 1:
+                assert (tiled["t_coarse"][:, 1] == 40 + 112).all()
+        tie = _fine_ties(x, tiled, s)
+        assert tie.mean() <= 0.25
+        dt = (tiled["t_fine"] - plain["t_fine"]).abs().numpy()
+        assert (dt[~tie] == 0).all() and (dt <= 1).all()
+        np.testing.assert_array_equal(tiled["n_eff_tx"].numpy()[~tie],
+                                      plain["n_eff_tx"].numpy()[~tie])
+        np.testing.assert_allclose(tiled["cfo"].numpy(), plain["cfo"].numpy(),
+                                   rtol=0, atol=1e-7)
+        np.testing.assert_allclose(tiled["metric"].numpy(),
+                                   plain["metric"].numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(tiled["rms"].numpy(), plain["rms"].numpy(),
+                                   rtol=1e-6)
+    assert sr.launches == n0                  # CPU tensors: nothing launched
+    rt = sr.sync_report_tiled(xt, sm, *report_args(s, s.tconj))
+    det = rt["detected"].numpy()
+    if case in ("packet", "two_in_L", "sm_tie") or case == "edges" and K > 1:
+        assert det.any(-1).all()
+    if case == "noise":
+        assert not det.any()
+
+    rj = build_sync(1, 1, RT_T, max_peaks=K)(jnp.asarray(x))
+    if K == 1:
+        rj = {k: np.asarray(v)[:, None] for k, v in rj.items()}
+    np.testing.assert_array_equal(rt["detected"].numpy(), np.asarray(rj["detected"]))
+    real = np.take_along_axis(sm.numpy(), rt["t_coarse"].numpy(), 1) > 1e-6
+    keep = real | rt["detected"].numpy() if case != "noise" else np.ones_like(real)
+    keep &= ~_fine_ties(x, rt, s)
+    for k in ("t_coarse", "t_fine", "n_eff_tx"):
+        np.testing.assert_array_equal(rt[k].numpy()[keep], np.asarray(rj[k])[keep],
+                                      err_msg=k)
+    np.testing.assert_allclose(rt["cfo"].numpy()[keep], np.asarray(rj["cfo"])[keep],
+                               atol=1e-6)
+    np.testing.assert_allclose(rt["metric"].numpy()[keep],
+                               np.asarray(rj["metric"])[keep], rtol=1e-3)
+    np.testing.assert_allclose(rt["rms"].numpy()[keep], np.asarray(rj["rms"])[keep],
+                               rtol=1e-4)
+
+
+def test_sync_report_refusal_names_what_a_block_cannot_hold():
+    """The report kernel serves every chunk of the port's callers: the
+    runtime's, the loopback points, the shards and the 192,512-sample
+    streams up to 9 antennas at b = 16, u >= 2 (a block holds one peak's
+    segments); what it refuses, `_refusal` names: a segment beyond a
+    block's shared memory, degenerate sizes, a chunk shorter than STF +
+    one pattern or than the fine search's segment, more antennas than a
+    warp's lanes (one a lane)."""
+    from dectnrp_tpu_torch.phy.ops.sync_report import _refusal, _smem
+
+    assert _smem(1, 112, 16, 4, 4) == 1964
+    assert _smem(2, 112, 16, 4, 4) == 3248
+    for args in ((1, RT_T, 16, 112, 16, 4, 4), (2, RT_T, 16, 112, 16, 4, 4),
+                 (1, 2048, 16, 112, 16, 4, 1), (8, 8192 + 128, 16, 112, 16, 4, 16),
+                 (1, 192512, 256, 1792, 256, 4, 2),       # the flagship's streams
+                 (9, 192512, 256, 2304, 256, 4, 8)):      # u = 8, b = 16, 9 RX
+        assert _refusal(*args) == "", args
+    for args, why in (((10, 192512, 256, 2304, 256, 4, 1), "bytes"),
+                      ((0, RT_T, 16, 112, 16, 4, 4), "R = 0"),
+                      ((33, RT_T, 16, 112, 16, 4, 4), "lanes"),
+                      ((1, RT_T, 16, 112, 16, 4, 0), "K = 0"),
+                      ((1, RT_T, 16, 16, 16, 4, 1), "L = 16"),
+                      ((1, 140, 16, 112, 16, 4, 1), "shorter"),
+                      ((1, 200, 16, 112, 60, 4, 1), "shorter")):
+        assert why in _refusal(*args), (args, _refusal(*args))

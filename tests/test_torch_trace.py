@@ -104,6 +104,8 @@ def test_launch_counts_holds_the_program_counters():
     from dectnrp_tpu_torch import dcn_dryrun, kernels, scaling
 
     c = kernels.launch_counts()
+    assert kernels.LAUNCH_KEYS == ("bcjr", "bcjr_one_window", "bcjr_bf16", "sync",
+                                   "polyphase", "sync_report")
     assert tuple(c)[:len(kernels.LAUNCH_KEYS)] == kernels.LAUNCH_KEYS
     assert set(trace.counters()) <= set(c)
     # the tools' reports keep their shape: the launch keys only
