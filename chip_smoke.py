@@ -37,7 +37,9 @@ phy_options, multichip and multiprocess) and read just after:
             tools/run_tpu_runtime_check.py rebuilt on the port
             (runtime_check): 4 beacons between two nodes at 1.728 Ms/s and
             at 1.92 Ms/s (the 9/10 front end and the 10/9 TX resampler in
-            the loop), and 2 beacons of the 2 x 2 N_SS = 2 exchange;
+            the loop), 2 beacons of the 2 x 2 N_SS = 2 exchange, and 2
+            tm-5 packets of the 4 x 4 exchange of class 2.12.4.A (u = 2,
+            b = 12, 41.472 Ms/s, spp and chunks of 24,576);
   iq_ingress  the same runtime over the real-IQ radios (radio/hw_iq.py,
             the native host runtime common/native.py built with g++) at
             configurations/socket_radio's sizes, not cut: 1.92 Ms/s, spp
@@ -243,8 +245,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
   7c. the kernels on the inputs the runtime path handed them (caught while
      it ran), each held to its plain twin, then timed beside it and its
      bound: B1 at every (K, rows) decoded (one window below K = 512, bit for
-     bit its plain twin and turbo._bcjr_posterior; windowed at K = 880),
-     B2 on a sync chunk [1, R, 2,496] at R = 1 and 2, B3 on the 10/9 TX
+     bit its plain twin and turbo._bcjr_posterior; windowed at K = 880
+     and the 2.12.4.A exchange's K), B2 on a sync chunk [1, R, 2,496] at
+     R = 1 and 2 and [1, 4, 31,488] at b = 12, B3 on the 10/9 TX
      burst and the 9/10 front-end step (history + 1,280 radio samples), bit
      for bit its tiled twin and at rtol 2e-5 / atol 2e-5 its plain twin;
   7d. a runtime tick's host time by layer: one exchange at each rate with
@@ -1369,9 +1372,10 @@ def phase_runtime(dev, card, report):
     `python -m dectnrp_tpu_torch.apps.dectnrp_main <dir> --ticks N` runs it)
     over the committed simulator configurations, then the exchanges of
     tools/run_tpu_runtime_check.py (runtime_check: beacons at 1.728 and
-    1.92 Ms/s, the 2 x 2 N_SS = 2 exchange), each gated, its kernels
-    counted: B1 as one window (windowed only at the 2 x 2 exchange's PDC,
-    K = 880), B2 once a sync chunk (and once a
+    1.92 Ms/s, the 2 x 2 N_SS = 2 exchange, the 4 x 4 tm-5 exchange of
+    class 2.12.4.A), each gated, its kernels counted: B1 as one window
+    (windowed only at the 2 x 2 exchange's PDC, K = 880, and the 2.12.4.A
+    exchange's), B2 once a sync chunk (and once a
     loopback point), B3 once a front-end step and a resampled TX burst and
     never at the DECT rate, B4 never. Returns (launches on the path, the
     inputs caught for phase 7c)."""
@@ -1420,7 +1424,7 @@ def phase_runtime(dev, card, report):
                                           run.driver.vspace.cfg.samp_rate, len(rts)),
                           "want": {"sync": sum(r.stats.chunks for r in rts) + extra_sync,
                                    "polyphase": rt_pumps(rts)}}
-        for kind in ("dect", "sdr", "mimo"):
+        for kind in ("dect", "sdr", "mimo", "rdc_2124a"):
             c0, t0 = counts(), time.perf_counter()
             ex = rc.build(kind, dev)
             got = rc.run(ex, sync=torch.cuda.synchronize)
@@ -1434,7 +1438,8 @@ def phase_runtime(dev, card, report):
             runs[f"exchange_{kind}"] = {
                 **{k: v for k, v in got.items() if k not in ("tx_stats",)},
                 "launches": d, "seconds": time.perf_counter() - t0,
-                **rt_tick_stats(ex.tick_ms, rc.SPP, rc.KINDS[kind][2], 2),
+                **rt_tick_stats(ex.tick_ms, rc.KINDS[kind].spp,
+                                rc.KINDS[kind].rate, 2),
                 "want": {"sync": sum(r.stats.chunks for r in rts),
                          "polyphase": rt_pumps(rts) + n_tx_resampled}}
     finally:
@@ -1443,18 +1448,21 @@ def phase_runtime(dev, card, report):
     for name, r in runs.items():
         d, w = r["launches"], r["want"]
         # every code block of the path has K < 512 (one window) but the
-        # 2 x 2 exchange's PDC, K = 880 (128-step windows)
+        # 2 x 2 exchange's PDC, K = 880, and the 2.12.4.A exchange's PDCs
+        # (128-step windows)
         packets = name != "basic_simulator"
         windowed = d["bcjr"] - d["bcjr_one_window"]
         require(d["sync"] == w["sync"] and d["polyphase"] == w["polyphase"]
                 and d["sync_report"] == w["sync"]
                 and (d["bcjr_one_window"] > 0 or not packets)
-                and (windowed > 0) == (name == "exchange_mimo")
+                and (windowed > 0) == (name in ("exchange_mimo",
+                                                "exchange_rdc_2124a"))
                 and d["bcjr_bf16"] == 0
                 and (d["polyphase"] > 0) == (name == "exchange_sdr"),
                 f"runtime {name}: kernels not launched as expected ({d}; sync "
                 f"and sync_report {w['sync']}, polyphase {w['polyphase']}, bcjr "
-                "as one window, windowed only in exchange_mimo, bcjr_bf16 0)")
+                "as one window, windowed only in exchange_mimo and "
+                "exchange_rdc_2124a, bcjr_bf16 0)")
         print(f"[{card}] runtime {name}: {r['ticks']} ticks, median "
               f"{r['tick_ms_median']:.2f} ms / mean {r['tick_ms_mean']:.2f} ms "
               f"a tick = {r['realtime_multiple']:.2f}x realtime "
@@ -1465,7 +1473,7 @@ def phase_runtime(dev, card, report):
               flush=True)
     launches = counts()
     report["runtime"] = {"path_s": path_s, "runs": runs, "launches": launches}
-    print(f"[{card}] runtime: 4 scenarios and 3 exchanges passed their gates "
+    print(f"[{card}] runtime: 4 scenarios and 4 exchanges passed their gates "
           f"in {path_s:.1f} s; launches on the path: "
           + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
     return launches, catch
@@ -1503,9 +1511,11 @@ def phase_runtime_kernels(dev, report, catch, path="runtime"):
     (K < 512: PCC 56 / 96, the minimum-length packet's PDC, the beacon's
     PDC 480, the loopback firmware's 20-row batches), bit for bit its plain
     twin and turbo._bcjr_posterior, and windowed at the 2 x 2 exchange's
-    PDC (K = 880), bit for bit its plain twin; B2 on a sync chunk [1, R, 2,496] at R = 1 and 2
-    (`_sync_check`), and the sync report after it (K = 4) on B2's metric of
-    the same chunk (`_report_check`); B3 on the 10/9 TX burst and the 9/10
+    PDC (K = 880) and the 2.12.4.A exchange's PDC (K = 4,928 / 4,992),
+    bit for bit its plain twin; B2 on a sync chunk [1, R, 2,496] at R = 1
+    and 2 and [1, 4, 31,488] at b = 12 (`_sync_check`), and the sync
+    report after it (K = 4) on B2's metric of the same chunk
+    (`_report_check`); B3 on the 10/9 TX burst and the 9/10
     front-end step (history + 1,280 radio samples), bit for bit its tiled
     twin and within POLY_TOL of its plain twin, conv1d beside it."""
     from dectnrp_tpu_torch.kernels import graph_us

@@ -33,7 +33,7 @@ SPANS = (
     "scenario.tick",
     "sim.tick", "sim.assemble", "sim.ether", "sim.deliver",
     "runtime.process", "runtime.pump", "runtime.sync", "runtime.pcc",
-    "runtime.pdc", "runtime.tx", "runtime.tx_resample",
+    "runtime.pdc", "runtime.mimo", "runtime.tx", "runtime.tx_resample",
     "firmware.start", "firmware.regular", "firmware.irregular",
     "firmware.pcc", "firmware.pcc_error", "firmware.pdc",
     "firmware.pdc_error", "firmware.application",

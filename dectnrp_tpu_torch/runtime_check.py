@@ -7,9 +7,14 @@ port: two nodes over the virtual ether, each with its own NodeRuntime.
          resampler front end and the 10/9 TX resampler are in the loop;
   mimo   2 x 2 antennas, tm 2 (N_SS = 2 spatial multiplexing), PLCF type 2
          carrying n_ss = 2: the receiver derives tm 2 from the detected
-         N_eff_TX and the PLCF and decodes both streams by MMSE.
+         N_eff_TX and the PLCF and decodes both streams by MMSE;
+  rdc_2124a  radio device class 2.12.4.A (TS 103 636-3 Annex C): 4 x 4
+         antennas, u = 2, b = 12 at the DECT rate 41.472 Ms/s, tm 5 (4-TX
+         transmit diversity) packets of 3 subslots at MCS 2, two code
+         blocks of a TB: the receiver derives tm 5 from N_eff_TX = 4.
 
-spp 2048, noise variance 1e-8, the nodes 1 m apart. `build` makes an
+spp and sync chunks of 2048 b samples (a beacon every 4 spp), noise
+variance 1e-8, the nodes 1 m apart. `build` makes an
 exchange on a device; `run` drives it tick by tick and returns its
 counters; the exchange keeps every tick's host time and what the receiver
 saw (detection times, SNR estimates, decoded TBs). `run` takes the vspace draws of each
@@ -20,6 +25,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,12 +41,29 @@ from .upper.tpoint import MacHighPhy, MacLowPhy, Tpoint, TxDescriptor
 
 IDENT = Identity(0x12345678, 0x2222, 0x3333)
 SPP, NOISE_VAR, DECT_RATE, SDR_RATE = 2048, 1e-8, 1_728_000, 1_920_000
+
+
+class Kind(NamedTuple):
+    psdef: PacketSizesDef
+    n_ant: int
+    rate: int                   # the radios' rate
+    n_max: int                  # beacons sent
+    seed0: int                  # the first TB's seed
+    t_min: int                  # ticks at least
+    t_max: int                  # ticks at most
+
+    @property
+    def spp(self) -> int:
+        """Samples a tick, and of a sync chunk: 2048 b."""
+        return SPP * self.psdef.b
+
+
 KINDS = {
-    # kind: (psdef, antennas, radio rate, beacons sent, first TB seed,
-    #        ticks at least, ticks at most)
-    "dect": (PacketSizesDef(1, 1, 0, 2, 0, 2, 6144), 1, DECT_RATE, 4, 0, 40, 120),
-    "sdr": (PacketSizesDef(1, 1, 0, 2, 0, 2, 6144), 1, SDR_RATE, 4, 0, 40, 120),
-    "mimo": (PacketSizesDef(1, 1, 0, 2, 2, 2, 6144), 2, DECT_RATE, 2, 100, 20, 80),
+    "dect": Kind(PacketSizesDef(1, 1, 0, 2, 0, 2, 6144), 1, DECT_RATE, 4, 0, 40, 120),
+    "sdr": Kind(PacketSizesDef(1, 1, 0, 2, 0, 2, 6144), 1, SDR_RATE, 4, 0, 40, 120),
+    "mimo": Kind(PacketSizesDef(1, 1, 0, 2, 2, 2, 6144), 2, DECT_RATE, 2, 100, 20, 80),
+    "rdc_2124a": Kind(PacketSizesDef(2, 12, 0, 3, 5, 2, 6144), 4, 41_472_000,
+                      2, 200, 16, 40),
 }
 
 
@@ -129,18 +152,19 @@ class Exchange:
 
 def build(kind: str, device: torch.device | str = "cuda") -> Exchange:
     """The exchange `kind` (KINDS) with its ether and PHY on `device`."""
-    psdef, n_ant, rate, n_max, seed0, _, _ = KINDS[kind]
-    hws = [HwSimulator(n_ant), HwSimulator(n_ant)]
-    cfg = VSpaceConfig(samp_rate=float(rate), spp_len=SPP, noise_var=NOISE_VAR)
-    nodes = [VNodeConfig(n_ant, Trajectory(Position(0, 0, 0))),
-             VNodeConfig(n_ant, Trajectory(Position(1.0, 0, 0)))]
+    k = KINDS[kind]
+    hws = [HwSimulator(k.n_ant), HwSimulator(k.n_ant)]
+    cfg = VSpaceConfig(samp_rate=float(k.rate), spp_len=k.spp, noise_var=NOISE_VAR)
+    nodes = [VNodeConfig(k.n_ant, Trajectory(Position(0, 0, 0))),
+             VNodeConfig(k.n_ant, Trajectory(Position(1.0, 0, 0)))]
     drv = SimDriver(cfg, hws, nodes, device)
-    tx_fw = TxBeacon(psdef, n_max, seed0)
+    tx_fw = TxBeacon(k.psdef, k.n_max, k.seed0)
     rx_fw = RxCounter(tx_fw.payloads)
-    rt_tx = NodeRuntime(hws[0], tx_fw, IDENT.network_id, regular_period=8192,
-                        hw_samp_rate=rate, device=device)
-    rt_rx = NodeRuntime(hws[1], rx_fw, IDENT.network_id, hw_samp_rate=rate,
-                        device=device)
+    geo = dict(u=k.psdef.u, b=k.psdef.b, chunk_len=k.spp, hw_samp_rate=k.rate,
+               device=device)
+    rt_tx = NodeRuntime(hws[0], tx_fw, IDENT.network_id,
+                        regular_period=4 * k.spp, **geo)
+    rt_rx = NodeRuntime(hws[1], rx_fw, IDENT.network_id, **geo)
     return Exchange(kind, drv, tx_fw, rx_fw, rt_tx, rt_rx)
 
 
@@ -156,9 +180,9 @@ def run(ex: Exchange, draws=None, ticks: int | None = None,
     beacon is decoded once the least number of ticks has passed (at most
     the kind's most). `draws(now)` gives each tick's vspace draws; `sync`
     (e.g. torch.cuda.synchronize) ends each tick's host time."""
-    t_min, t_max = KINDS[ex.kind][5:]
+    k = KINDS[ex.kind]
     n = 0
-    while n < (ticks or t_max):
+    while n < (ticks or k.t_max):
         t0 = time.perf_counter()
         ex.drv.tick(draws(ex.drv.now) if draws is not None else None)
         ex.rt_tx.process()
@@ -167,7 +191,7 @@ def run(ex: Exchange, draws=None, ticks: int | None = None,
             sync()
         ex.tick_ms.append((time.perf_counter() - t0) * 1e3)
         n += 1
-        if ticks is None and n >= t_min and done(ex):
+        if ticks is None and n >= k.t_min and done(ex):
             break
     return summary(ex)
 
@@ -175,7 +199,7 @@ def run(ex: Exchange, draws=None, ticks: int | None = None,
 def summary(ex: Exchange) -> dict:
     """Counters and the gate of the tool: every sent beacon decoded with its
     payload, none scheduled late (and n_ss = 2 seen in the mimo exchange)."""
-    n_max = KINDS[ex.kind][3]
+    n_max = KINDS[ex.kind].n_max
     ok = ex.tx_fw.sent >= n_max and ex.rx_fw.tb_match == ex.tx_fw.sent \
         and ex.rt_tx.stats.tx_late == 0
     if ex.kind == "mimo":

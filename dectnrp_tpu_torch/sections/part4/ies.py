@@ -4,7 +4,9 @@ Parity: reference lib/src/sections_part4/mac_messages_and_ie/*.cpp
 (one class per IE; see each docstring for the source file).
 
 Copy of `dectnrp_tpu/sections/part4/ies.py`: the port imports nothing of the JAX
-package. `tests/test_torch_tables.py` holds the code equal.
+package. `tests/test_torch_tables.py` holds the code equal but for
+`PaddingIE.mux_header`, which also takes the 16-bit length form (its
+DEPARTURES; `tests/test_torch_wideband.py` holds that function).
 """
 from __future__ import annotations
 
@@ -656,12 +658,18 @@ class PaddingIE:
         self.n_bytes = n_bytes
 
     def mux_header(self) -> MuxHeader:
+        """The 1-bit and 8-bit length forms up to N = 257; above, the 16-bit
+        form (MAC_Ext 10, 6.3.4): a 3-byte header + N-3 bytes, which the TB
+        of a wide band (b >= 12) needs to pad a beacon."""
         if self.n_bytes == 1:
             return MuxHeader(MacExt.LENGTH_1BIT, int(IeTypeShortLen0.PADDING_IE), 0)
         if self.n_bytes == 2:
             return MuxHeader(MacExt.LENGTH_1BIT, int(IeTypeShortLen1.PADDING_IE), 1)
-        return MuxHeader(MacExt.LENGTH_8BIT, int(IeType.PADDING_IE),
-                         self.n_bytes - 2)
+        if self.n_bytes <= 257:
+            return MuxHeader(MacExt.LENGTH_8BIT, int(IeType.PADDING_IE),
+                             self.n_bytes - 2)
+        return MuxHeader(MacExt.LENGTH_16BIT, int(IeType.PADDING_IE),
+                         self.n_bytes - 3)
 
     def packed_size_mmh_sdu(self) -> int:
         return self.n_bytes

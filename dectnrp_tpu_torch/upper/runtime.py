@@ -501,7 +501,8 @@ class NodeRuntime:
             # the codebook search on the channel estimates stays on the
             # device; its result comes back with the PDC's report
             cells = out2["h_cells"]
-            found = mimo_search(cells)
+            with span("runtime.mimo"):
+                found = mimo_search(cells)
             n_tb = ps.N_TB_bits
             h = _host(out2["tb"][0], out2["tb_ok"][0], out2["snr_db"][0],
                       out2["sto_frac"][0], out2["cfo_res"][0],

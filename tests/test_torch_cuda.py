@@ -662,7 +662,7 @@ def test_loopback_point_card_matches_cpu(dev, variant):
     assert d[4] == (2 if kw.get("resampler_loop") else 0), d
 
 
-@pytest.mark.parametrize("kind", ["dect", "sdr"])
+@pytest.mark.parametrize("kind", ["dect", "sdr", "rdc_2124a"])
 def test_runtime_exchange_card_matches_cpu(dev, kind):
     """The beacon exchange (runtime_check) on the card and on the CPU with
     the same vspace draws: every beacon decoded with its payload, equal

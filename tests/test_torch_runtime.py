@@ -374,8 +374,9 @@ def _jax_exchange(kind):
     from dectnrp_tpu.upper.tpoint import (MacHighPhy as JHigh, MacLowPhy as JLow,
                                           Tpoint as JTpoint, TxDescriptor as JTd)
 
-    psdef, n_ant, rate, n_max, seed0, _, _ = rc.KINDS[kind]
-    psdef = JPs(*vars(psdef).values())
+    k = rc.KINDS[kind]
+    n_ant, rate, n_max, seed0 = k.n_ant, k.rate, k.n_max, k.seed0
+    psdef = JPs(*vars(k.psdef).values())
 
     class Tx(JTpoint):
         def __init__(self):
@@ -422,13 +423,14 @@ def _jax_exchange(kind):
             return JHigh()
 
     hws = [JHw(n_ant), JHw(n_ant)]
-    drv = JDrv(JCfg(samp_rate=float(rate), spp_len=rc.SPP, noise_var=rc.NOISE_VAR),
+    drv = JDrv(JCfg(samp_rate=float(rate), spp_len=k.spp, noise_var=rc.NOISE_VAR),
                hws, [JNode(n_ant, JTr(JPos(0, 0, 0))),
                      JNode(n_ant, JTr(JPos(1.0, 0, 0)))])
     tx_fw, rx_fw = Tx(), Rx()
-    rt_tx = JRt(hws[0], tx_fw, IDENT.network_id, regular_period=8192,
-                hw_samp_rate=rate)
-    rt_rx = JRt(hws[1], rx_fw, IDENT.network_id, hw_samp_rate=rate)
+    geo = dict(u=psdef.u, b=psdef.b, chunk_len=k.spp, hw_samp_rate=rate)
+    rt_tx = JRt(hws[0], tx_fw, IDENT.network_id, regular_period=4 * k.spp,
+                **geo)
+    rt_rx = JRt(hws[1], rx_fw, IDENT.network_id, **geo)
     for rt in (rt_tx, rt_rx):
         _port_front_end_step(rt)
     return drv, tx_fw, rx_fw, rt_tx, rt_rx
@@ -451,23 +453,23 @@ def _port_front_end_step(jrt) -> None:
     jrt._rx_step = cwrap_cached(step)
 
 
-@pytest.mark.parametrize("kind", ["dect", "sdr"])
+@pytest.mark.parametrize("kind", ["dect", "sdr", "rdc_2124a"])
 def test_exchange_decides_as_jax(kind):
-    n_ticks = 40
+    k = rc.KINDS[kind]
+    n_ticks = k.t_min
     drv, tx_j, rx_j, rtx_j, rrx_j = _jax_exchange(kind)
     for _ in range(n_ticks):
         drv.tick()
         rtx_j.process()
         rrx_j.process()
     ex = rc.build(kind, "cpu")
-    n_ant = rc.KINDS[kind][1]
     got = rc.run(ex, ticks=n_ticks, draws=lambda now: jax_tick_draws(
-        0, now, 2, n_ant, rc.SPP, noise_var=rc.NOISE_VAR))
-    assert got["ok"] and got["tb_payload_match"] == tx_j.sent == 4, got
+        0, now, 2, k.n_ant, k.spp, noise_var=rc.NOISE_VAR))
+    assert got["ok"] and got["tb_payload_match"] == tx_j.sent == k.n_max, got
     assert vars(ex.rt_rx.stats) == vars(rrx_j.stats)
     assert vars(ex.rt_tx.stats) == vars(rtx_j.stats)
     assert ex.rx_fw.detection_times == rx_j.detection_times
-    assert len(ex.rx_fw.tbs) == len(rx_j.tbs) == 4
+    assert len(ex.rx_fw.tbs) == len(rx_j.tbs) == k.n_max
     for a, b in zip(ex.rx_fw.tbs, rx_j.tbs):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_allclose(ex.rx_fw.pcc_snr_db, rx_j.pcc_snr_db, atol=1e-3)

@@ -64,11 +64,25 @@ def _port_psdef(psdef):
     return T(**dataclasses.asdict(psdef))
 
 
-def _code(path):
-    """AST of a module without its docstring."""
-    body = ast.parse(path.read_text()).body
+#: functions of a copy that depart from the JAX package's on purpose, taken
+#: out of both modules before they are compared ({path: {class: [method]}}),
+#: each held by a test of its own: PaddingIE.mux_header takes the 16-bit
+#: length form above 257 bytes, which a TB of a wide band needs (the JAX
+#: package's asserts; tests/test_torch_wideband.py holds the port's to the
+#: JAX package's bytes at and below 257)
+DEPARTURES = {"sections/part4/ies.py": {"PaddingIE": ["mux_header"]}}
+
+
+def _code(pkg, path):
+    """AST of the module pkg/path without its docstring and its DEPARTURES."""
+    body = ast.parse((ROOT / pkg / path).read_text()).body
     if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
         body = body[1:]
+    drop = DEPARTURES.get(path, {})
+    for node in body:
+        if isinstance(node, ast.ClassDef) and node.name in drop:
+            node.body = [n for n in node.body
+                         if getattr(n, "name", None) not in drop[node.name]]
     return ast.dump(ast.Module(body=body, type_ignores=[]))
 
 
@@ -98,8 +112,7 @@ def test_numpy_copies_are_verbatim(path):
     """The port's copied numpy modules are the JAX package's, code for code
     (only the module docstrings differ), helpers the slice does not call
     included."""
-    assert _code(ROOT / "dectnrp_tpu_torch" / path) == \
-        _code(ROOT / "dectnrp_tpu" / path)
+    assert _code("dectnrp_tpu_torch", path) == _code("dectnrp_tpu", path)
 
 
 def test_verified_hw_rates():

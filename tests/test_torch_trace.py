@@ -24,7 +24,8 @@ PARENT = {"scenario.tick": None, "sim.tick": "scenario.tick",
           "sim.deliver": "sim.tick", "runtime.process": "scenario.tick",
           **{s: "runtime.process" for s in trace.SPANS
              if s.split(".")[0] == "firmware" or s.startswith("runtime.")
-             and s != "runtime.process"}}
+             and s != "runtime.process"},
+          "runtime.mimo": "runtime.pdc"}
 WARM_MAX, WINDOW = 80, 12
 
 
